@@ -5,27 +5,37 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds every hand-written CUDA kernel of the serving path from the sources
-in `mrfa_tpu_torch/csrc/` (nvcc, sm_90a) and runs these phases; any failure
-exits non-zero:
+It builds every hand-written CUDA kernel of the port from the sources in
+`mrfa_tpu_torch/csrc/` (nvcc, sm_90a, one process per source, all at once)
+and runs these phases; any failure exits non-zero:
 
   1. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, in f32 and bf16;
+     paths' shapes, in f32 and bf16: the lookup forward at the serving and
+     the training query counts, the lookup backward at the training ones,
+     the splat at the shapes of the training step's feature warps;
   2. the frame step on the card against the port's CPU path, at a small
      config, with TF32 off;
-  3. the main path at full width: config/vox1.yaml's MTIA model at 256 px,
+  3. the serving path at full width: config/vox1.yaml's MTIA model at 256 px,
      B=1, random weights from a seed — `Animator.begin`, warm-up frames,
      back-to-back frames (frames/s), then one request at a time from host
      frame to host image (latency p50/p90) — with the kernels' launch counts
-     read from this run alone;
-  4. each kernel timed with CUDA events at the main path's largest shape,
-     beside its plain version, a library yardstick and its bound (the
-     larger of bytes over the memory rate and operations over the f32 rate);
-  5. a torch.profiler breakdown of a few frames.
+     read from this run alone (6 lookups a frame, no backward kernel);
+  4. one training step on the card against the port's CPU path, at a small
+     config, from the same weights and the same equivariance transform;
+  5. the training path at full width: the same model, batch 10, smooth
+     synthetic frames from a seed, warm-up and timed `Trainer.step`s (ms per
+     step, samples/s, peak memory), with the launch counts of this run alone
+     checked against the expected 6 lookups, 6 lookup backwards and 17
+     splats a step;
+  6. a learning check: 20 steps on one fixed batch at the small config;
+  7. each kernel timed with CUDA events at its main path's largest shape,
+     beside its plain version, a library yardstick and its bound (the larger
+     of bytes over the memory rate and operations over the f32 rate);
+  8. a torch.profiler breakdown of a few frames and of one training step.
 
 Stdout ends with a `{"kernels": [...]}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
-TF32 is off throughout (cuDNN and matmul): the port serves at f32.
+TF32 is off throughout (cuDNN and matmul): the port runs at f32.
 """
 from __future__ import annotations
 
@@ -43,8 +53,20 @@ FRAME_SIZE = 256
 WARMUP_FRAMES = 3
 TIMED_FRAMES = 20  # back-to-back throughput frames
 LATENCY_FRAMES = 100  # one request at a time: p90 has 10 samples beyond it
-LOOKUP_BQS = (64, 256, 1024, 4096)  # the six iterations' query counts at 256 px, B=1
 MAP_SIZE = 64  # level-0 maps are (size/4)^2
+LOOKUP_BQS = (64, 256, 1024, 4096)  # the six serving iterations' query counts, B=1
+TRAIN_BATCH = 10  # per card: vox1.yaml's batch_size 80 is the global batch of 8 GPUs
+TRAIN_LOOKUP_BQS = (640, 2560, 10240, 40960)  # the same, B=10
+# (resolution, channels) of the generator pyramid levels the training step
+# warps: each level's context, flow_w and coarse warps take the splat (the
+# finest level has no coarse warp)
+SPLAT_SHAPES = ((8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64))
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 10
+LEARN_STEPS = 20
+# splats: the context and flow_w warps of all 6 pyramid levels and the coarse
+# warps of the 5 levels the decode reads
+PER_STEP = {"corr_lookup": 6, "corr_lookup_bwd": 6, "splat": 17}
 SEED = 0
 
 
@@ -65,26 +87,51 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def lookup_inputs(bq: int, dtype, device, seed: int):
-    """Level maps (level 1 = 2x2 mean of level 0) and coords around the
-    identity grid, with exact integer centres and partly and fully
-    out-of-bounds windows mixed in."""
+    """Level maps (level 1 = 2x2 mean of level 0), made on the card from a
+    seed, and coords around a grid of centres, with exact integer centres and
+    partly and fully out-of-bounds windows mixed in."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c0 = torch.randn(bq, MAP_SIZE, MAP_SIZE, generator=gen, device=device)
+    c1 = F.avg_pool2d(c0[:, None], 2)[:, 0]
+    side = int(np.ceil(np.sqrt(bq)))
+    idx = torch.arange(bq, device=device)
+    grid = torch.stack([idx % side, idx // side], -1).float() * (MAP_SIZE / side)
+    coords = grid + 2.0 * torch.randn(bq, 2, generator=gen, device=device)
+    n = bq // 8
+    coords[:n] = torch.round(coords[:n])  # integer centres
+    coords[n:2 * n] = torch.rand(n, 2, generator=gen, device=device) * (MAP_SIZE + 24) - 12
+    coords[2 * n:2 * n + 4] = torch.tensor(
+        [[-40.0, 5.0], [MAP_SIZE + 30.0, 20.0], [10.0, -50.0], [-9.0, -9.0]], device=device)
+    return c0.to(dtype).contiguous(), c1.to(dtype).contiguous(), coords.contiguous()
+
+
+def splat_inputs(res: int, c: int, dtype, device, seed: int):
+    """The arguments a feature warp's backward hands the splat at this
+    pyramid level: a (B, res^2, C) gradient and the corners and pair weights
+    of coordinates around the identity grid (a flow of a few pixels, some
+    samples off the image), as `ops.sampler` computes them."""
     import torch
 
-    rng = np.random.RandomState(seed)
-    c0 = rng.randn(bq, MAP_SIZE, MAP_SIZE).astype(np.float32)
-    c1 = c0.reshape(bq, MAP_SIZE // 2, 2, MAP_SIZE // 2, 2).mean(axis=(2, 4))
-    side = int(round(np.sqrt(bq)))
-    ys, xs = np.divmod(np.arange(bq), side)
-    step = MAP_SIZE / side
-    coords = np.stack([xs * step, ys * step], -1) + rng.randn(bq, 2) * 2.0
-    n = bq // 8
-    coords[:n] = np.round(coords[:n])  # integer centres
-    coords[n:2 * n] = rng.uniform(-12, MAP_SIZE + 12, (n, 2))  # edges, partly out
-    coords[2 * n:2 * n + 4] = [[-40, 5], [MAP_SIZE + 30, 20], [10, -50], [-9, -9]]
-    coords = coords.astype(np.float32)
-    to = lambda a: torch.from_numpy(a).to(device=device, dtype=dtype).contiguous()  # noqa: E731
-    return to(c0), to(c1), torch.from_numpy(coords).to(device).contiguous()
+    from mrfa_tpu_torch.ops.sampler import _tap_weights
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = res * res
+    g = torch.randn(TRAIN_BATCH, n, c, generator=gen, device=device).to(dtype)
+    idx = torch.arange(n, device=device)
+    ix = (idx % res).float() + 2.0 * torch.randn(TRAIN_BATCH, n, generator=gen, device=device)
+    iy = (idx // res).float() + 2.0 * torch.randn(TRAIN_BATCH, n, generator=gen, device=device)
+    x0, y0, wx, wy, vx0, vx1, vy0, vy1 = _tap_weights(ix, iy, res, res, True)
+    args = (g, y0.contiguous(), ((1.0 - wy) * vy0).contiguous(), (wy * vy1).contiguous(),
+            x0.contiguous(), ((1.0 - wx) * vx0).contiguous(), (wx * vx1).contiguous(), res, res)
+    return args, ix, iy
 
 
 def bf16_ulp(x):
@@ -95,41 +142,94 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def phase_kernels(corr_lookup, corr_lookup_plain, device):
-    """Phase 1: the kernel against its plain version on the card."""
+def close(got, want, dtype, what: str):
+    """f32: within 1e-6 of the largest |value| (same terms, order and
+    roundings as the plain version); bf16: within one bf16 ulp of each value.
+    Returns (max abs error, tolerance)."""
     import torch
+
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if dtype == torch.float32:
+        tol = 1e-6 * max(float(want.float().abs().max()), 1e-30)
+        ok = err <= tol
+    else:
+        ulp = bf16_ulp(want.float())
+        tol = float(ulp.max())
+        ok = bool((diff <= ulp).all())
+    check(ok, f"{what}: max abs err {err:.3e} over tolerance")
+    return err, tol
+
+
+def phase_kernels(k, device):
+    """Phase 1: each kernel against its plain version on the card."""
+    import torch
+
+    from mrfa_tpu_torch.ops.corr_lookup import corr_lookup_bwd_plain, corr_lookup_plain
+    from mrfa_tpu_torch.ops.splat import splat_plain
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        worst = 0.0
-        for i, bq in enumerate(LOOKUP_BQS):
+        name = dtype_name(dtype)
+        worst = {"corr_lookup": 0.0, "corr_lookup_bwd": 0.0, "splat": 0.0}
+        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + i)
-            got = corr_lookup(c0, c1, coords)
+            got = k["corr_lookup"](c0, c1, coords)
             want = corr_lookup_plain(c0, c1, coords)
             torch.cuda.synchronize()
             check(got.shape == (bq, 98) and got.dtype == dtype, f"lookup shape/dtype {got.shape}")
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                tol = 1e-6 * float(c0.abs().max().float())
-                ok = err <= tol
-            else:
-                tol = float(bf16_ulp(want.float()).max())
-                ok = bool((diff <= bf16_ulp(want.float())).all())
-            exact = float((diff == 0).float().mean())
-            print(f"phase1 corr_lookup {str(dtype).split('.')[-1]} bq={bq}: "
-                  f"max_abs_err={err:.3e} (tol {tol:.3e}) exact_share={exact:.6f}")
-            check(ok, f"corr_lookup disagrees with its plain version: {dtype} bq={bq} err={err}")
-            worst = max(worst, err)
+            err, tol = close(got, want, dtype, f"corr_lookup {name} bq={bq}")
+            exact = float((got.float() == want.float()).float().mean())
+            print(f"phase1 corr_lookup {name} bq={bq}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+                  f"exact_share={exact:.6f}")
+            worst["corr_lookup"] = max(worst["corr_lookup"], err)
+            if bq not in TRAIN_LOOKUP_BQS:
+                continue
+            g = torch.randn(bq, 98, device=device).to(dtype)
+            got = k["corr_lookup_bwd"](c0, c1, coords, g)
+            want = corr_lookup_bwd_plain(c0, c1, coords, g)
+            torch.cuda.synchronize()
+            for what, a, b in (("d_c0", got[0], want[0]), ("d_c1", got[1], want[1])):
+                check(a.shape == b.shape and a.dtype == dtype, f"lookup bwd {what} shape/dtype")
+                err, tol = close(a, b, dtype, f"corr_lookup_bwd {name} bq={bq} {what}")
+                print(f"phase1 corr_lookup_bwd {name} bq={bq} {what}: max_abs_err={err:.3e} "
+                      f"(tol {tol:.3e})")
+                worst["corr_lookup_bwd"] = max(worst["corr_lookup_bwd"], err)
+            # d_coords: f32 sums of 98 terms in another order than torch.sum
+            err = float((got[2] - want[2]).abs().max())
+            tol = 1e-5 * max(1.0, float(want[2].abs().max()))
+            print(f"phase1 corr_lookup_bwd {name} bq={bq} d_coords: max_abs_err={err:.3e} "
+                  f"(tol {tol:.3e})")
+            check(err <= tol, f"corr_lookup_bwd d_coords {name} bq={bq}: {err}")
+            worst["corr_lookup_bwd"] = max(worst["corr_lookup_bwd"], err)
+            far = slice(2 * (bq // 8), 2 * (bq // 8) + 4)
+            check(not got[0][far].any() and not got[2][far].any(),
+                  "far-out centres must give zero map and coordinate gradients")
+        for j, (res, c) in enumerate(SPLAT_SHAPES):
+            args, _, _ = splat_inputs(res, c, dtype, device, seed=SEED + 100 + j)
+            got = k["splat"](*args)
+            want = splat_plain(*args)
+            torch.cuda.synchronize()
+            check(got.shape == (TRAIN_BATCH, res, res, c) and got.dtype == torch.float32,
+                  f"splat shape/dtype {got.shape}")
+            # f32 atomics sum in a run-dependent order: the JAX package's own
+            # hardware gate (bench.py), max |kernel - plain| / max |plain|
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            print(f"phase1 splat {name} B={TRAIN_BATCH} n={res * res} c={c} h=w={res}: "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol rel 1e-4)")
+            check(rel <= 1e-4, f"splat {name} res={res}: rel err {rel}")
+            worst["splat"] = max(worst["splat"], err)
         errs[dtype] = worst
     return errs
 
 
-def small_cfg(size=64, blocks=3, depth=1):
+def small_cfg(size=64, blocks=3, depth=1, losses=False):
     """The flagship MTIA model cut to 64 px, 3-block hourglasses and a 1-layer
-    TokenPose; every width as in config/vox1.yaml."""
-    return {
-        "train_params": {"prior_model": "mtia"},
+    TokenPose; every width as in config/vox1.yaml. With `losses`, the
+    training losses of vox1.yaml cut to scales [1, 0.25]."""
+    cfg = {
+        "train_params": {"prior_model": "mtia", "num_epochs": 100, "bg_start": 1000},
         "dense_motion": {
             "block_expansion": 64, "max_features": 1024, "num_blocks": blocks,
             "scale_factor": 0.25, "num_kp": 10, "num_channels": 3,
@@ -150,6 +250,26 @@ def small_cfg(size=64, blocks=3, depth=1):
                                "max_features": 512, "num_blocks": blocks},
         },
     }
+    if losses:
+        cfg["train_params"].update({
+            "scales": [1, 0.25],
+            "loss_weights": {"perceptual": [10] * 5, "equivariance": 10,
+                             "equivariance_jacobian": 10},
+            "transform_params": {"sigma_affine": 0.05, "sigma_tps": 0.005, "points_tps": 5},
+            "lr": 2.0e-4, "epoch_milestones": [60, 90], "clip_grad": True, "clip": 10,
+        })
+    return cfg
+
+
+def smooth_frames(b: int, size: int, gen, device):
+    """(B, size, size, 3) low-frequency frames in [0, 1]: 8x8 random images
+    bilinearly upsampled, made on `device` from the generator."""
+    import torch
+    import torch.nn.functional as F
+
+    coarse = torch.rand(b, 3, 8, 8, generator=gen, device=device)
+    img = F.interpolate(coarse, size=(size, size), mode="bilinear", align_corners=True)
+    return img.permute(0, 2, 3, 1).contiguous()
 
 
 def phase_gpu_vs_cpu():
@@ -179,18 +299,27 @@ def phase_gpu_vs_cpu():
         check(g.shape == w.shape and err <= tol, f"GPU frame step disagrees with CPU: {name}")
 
 
-def phase_full_width(kernels, card):
-    """Phase 3: the main path at full width; returns the launch counts."""
+def vox1_cfg():
+    from mrfa_tpu_torch.config import load_config, model_config
+
+    return model_config(load_config(str(Path(__file__).resolve().parent / "config" / "vox1.yaml")))
+
+
+def reset(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def phase_serving(kernels, card):
+    """Phase 3: the serving path at full width; returns the launch counts."""
     import torch
 
     from mrfa_tpu_torch.animate import Animator
-    from mrfa_tpu_torch.config import load_config, model_config
     from mrfa_tpu_torch.models.mrfa import MRFA
 
-    cfg = model_config(load_config(str(Path(__file__).resolve().parent / "config" / "vox1.yaml")))
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = MRFA(cfg)
+    model = MRFA(vox1_cfg())
     animator = Animator(model, model.state_dict())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -202,8 +331,7 @@ def phase_full_width(kernels, card):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
+    reset(kernels)
     t0 = time.perf_counter()
     state = animator.begin(source, frames[0])
     torch.cuda.synchronize()
@@ -222,12 +350,14 @@ def phase_full_width(kernels, card):
         t0 = time.perf_counter()
         host_outs.append(animator.animate_frame(state, f)[0].cpu().numpy())
         lat_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {k.name: k.launches for k in kernels}
+    launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
 
     n_frames = n_dev + LATENCY_FRAMES
     check(launches["corr_lookup"] == 6 * n_frames,
           f"corr_lookup launches {launches['corr_lookup']} != 6 x {n_frames} frames")
+    check(launches["corr_lookup_bwd"] == 0 and launches["splat"] == 0,
+          f"serving launched a backward kernel: {launches}")
     outs = [o.cpu().numpy() for o in outs] + host_outs
     check(outs[-1].shape == (1, FRAME_SIZE, FRAME_SIZE, 3), f"output shape {outs[-1].shape}")
     for o in outs:
@@ -235,7 +365,7 @@ def phase_full_width(kernels, card):
         check(float(o.min()) >= 0.0 and float(o.max()) <= 1.0, "output outside [0, 1]")
     check(float(np.abs(outs[-1] - outs[-2]).max()) > 0, "frames do not depend on the driving frame")
     result = {
-        "phase": "full_width", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+        "phase": "serving", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
         "batch": 1, "dtype": "float32", "tf32": False, "card": card,
         "model_build_s": build_s, "begin_ms": begin_ms,
         "frames_timed": TIMED_FRAMES, "fps": TIMED_FRAMES / elapsed,
@@ -248,6 +378,164 @@ def phase_full_width(kernels, card):
     }
     print("phase3 " + json.dumps(result))
     return animator, state, frames_dev, launches
+
+
+def _trainer_pair_step(cfg, seed, with_gpu=True):
+    """A Trainer on the CPU and one on the card with the same weights and
+    equivariance transforms (the same CPU generator seed), and a batch."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(seed)
+    on_cpu = Trainer(cfg, device="cpu", generator=torch.Generator().manual_seed(seed + 1))
+    on_gpu = None
+    if with_gpu:
+        weights = {k: v.clone() for k, v in on_cpu.model.state_dict().items()}
+        on_gpu = Trainer(cfg, generator=torch.Generator().manual_seed(seed + 1), weights=weights)
+    batch = {k: smooth_frames(2, 64, torch.Generator().manual_seed(seed + i), "cpu")
+             for i, k in enumerate(("source", "driving"), start=2)}
+    return on_cpu, on_gpu, batch
+
+
+def phase_train_gpu_vs_cpu():
+    """Phase 4: one training step on the card against the port's CPU path:
+    loss terms (rtol 1e-4), the generated frames, every gradient (before
+    Adam, after clipping) and the BatchNorm running statistics.
+
+    The randomly initialized network in train mode is sensitive at f32: a
+    1e-6 change of its input moves deep gradients by tens of percent (see
+    PERF.md). So beside 1e-3 of each tensor's largest |g| (1e-4 and 1e-5 for
+    the frames and the statistics), the card may differ from the CPU by
+    twice as much as the CPU's own step moves when the input frames move by
+    1e-6 (the largest of three such moves)."""
+    import torch
+
+    cfg = small_cfg(losses=True)
+    on_cpu, on_gpu, batch = _trainer_pair_step(cfg, SEED + 20)
+    want = on_cpu.step(batch)
+    got = on_gpu.step(batch)
+    floors = []
+    for i in range(3):
+        noisy, _, _ = _trainer_pair_step(cfg, SEED + 20, with_gpu=False)
+        gen = torch.Generator().manual_seed(SEED + 30 + i)
+        moved = {k: v + 1e-6 * torch.randn(v.shape, generator=gen) for k, v in batch.items()}
+        floors.append((noisy, noisy.step(moved)))
+
+    def floor(fn):
+        return 2 * max(fn(trainer, out) for trainer, out in floors)
+
+    for k in ("loss", "perceptual", "equivariance", "equivariance_jacobian"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        print(f"phase4 train gpu-vs-cpu {k}: gpu={got[k]:.7f} cpu={want[k]:.7f} "
+              f"rel_err={rel:.3e} (tol 1e-4)")
+        check(np.isfinite(got[k]) and rel <= 1e-4, f"train step loss {k} disagrees: {rel}")
+    gen_err = float((got["gen"].cpu() - want["gen"]).abs().max())
+    gen_tol = max(1e-4, floor(lambda t, o: float((o["gen"] - want["gen"]).abs().max())))
+    print(f"phase4 train gpu-vs-cpu generated: max_abs_err={gen_err:.3e} (tol {gen_tol:.3e})")
+    check(gen_err <= gen_tol, "train step generated frames disagree")
+    cpu_p = dict(on_cpu.model.named_parameters())
+    floor_p = [dict(t.model.named_parameters()) for t, _ in floors]
+    worst, n_grads, n_floor = (0.0, ""), 0, 0
+    for name, p in on_gpu.model.named_parameters():
+        if p.grad is None:
+            continue
+        n_grads += 1
+        w = cpu_p[name].grad
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((p.grad.cpu() - w).abs().max())
+        noise = 2 * max(float((fp[name].grad - w).abs().max()) for fp in floor_p)
+        tol = max(1e-3 * scale, noise)
+        check(err <= tol, f"gradient of {name}: err {err:.3e} > tol {tol:.3e}")
+        worst = max(worst, (err / tol, name))
+        n_floor += err > 1e-3 * scale
+    print(f"phase4 train gpu-vs-cpu gradients: {n_grads} tensors, {n_floor} of them beyond "
+          f"1e-3 of their max |g| and inside the input-1e-6 floor; worst err / tol = "
+          f"{worst[0]:.3e} ({worst[1]})")
+    cpu_state = on_cpu.model.state_dict()
+    floor_state = [t.model.state_dict() for t, _ in floors]
+    worst = 0.0
+    for key, t in on_gpu.model.state_dict().items():
+        if key.endswith(("running_mean", "running_var")):
+            err = float((t.cpu() - cpu_state[key]).abs().max())
+            noise = 2 * max(float((fs[key] - cpu_state[key]).abs().max()) for fs in floor_state)
+            check(err <= max(1e-5, noise), f"BatchNorm statistic {key}: err {err:.3e}")
+            worst = max(worst, err)
+    print(f"phase4 train gpu-vs-cpu BatchNorm running statistics: max_abs_err={worst:.3e}")
+
+
+def phase_train_full_width(kernels, card):
+    """Phase 5: the training path at full width; returns (trainer, batch,
+    launch counts, result)."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(SEED)
+    t0 = time.perf_counter()
+    trainer = Trainer(vox1_cfg(), generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    batches = [{k: smooth_frames(TRAIN_BATCH, FRAME_SIZE, gen, "cuda")
+                for k in ("source", "driving")} for _ in range(n_steps)]
+    before = [p.detach().clone() for p in trainer.optimizer.param_groups[0]["params"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    losses = [trainer.step(b) for b in batches[:TRAIN_WARMUP_STEPS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [trainer.step(b) for b in batches[TRAIN_WARMUP_STEPS:]]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, per_step in PER_STEP.items():
+        check(launches[name] == per_step * n_steps,
+              f"{name} launches {launches[name]} != {per_step} x {n_steps} steps")
+    for out in losses:
+        check(all(np.isfinite(out[k]) for k in out if k != "gen"), f"non-finite loss {out}")
+    moved = sum(float((p.detach() - q).abs().max() > 0)
+                for p, q in zip(trainer.optimizer.param_groups[0]["params"], before))
+    check(moved == len(before), f"only {moved} of {len(before)} parameter tensors changed")
+    result = {
+        "phase": "train_full_width", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+        "batch": TRAIN_BATCH, "dtype": "float32", "tf32": False, "card": card,
+        "checkpointing": False, "model_build_s": build_s,
+        "steps_timed": TRAIN_TIMED_STEPS, "ms_per_step": elapsed / TRAIN_TIMED_STEPS * 1e3,
+        "samples_per_s": TRAIN_BATCH * TRAIN_TIMED_STEPS / elapsed,
+        "peak_memory_bytes": peak, "launches": launches, "steps_total": n_steps,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "loss_first": losses[0]["loss"], "loss_last": losses[-1]["loss"],
+    }
+    print("phase5 " + json.dumps(result))
+    return trainer, batches[-1], launches, result
+
+
+def phase_learning():
+    """Phase 6: 20 steps on one fixed batch at the small config, lr 1e-3."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    cfg = small_cfg(losses=True)
+    cfg["train_params"]["lr"] = 1e-3
+    torch.manual_seed(SEED + 40)
+    trainer = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 41))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    batch = {k: smooth_frames(2, 64, gen, "cuda") for k in ("source", "driving")}
+    losses = [trainer.step(batch)["loss"] for _ in range(LEARN_STEPS)]
+    check(all(np.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    start, end = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    drop = 1.0 - end / start
+    print(f"phase6 learning: {LEARN_STEPS} steps, mean of first 3 {start:.5f}, of last 3 "
+          f"{end:.5f}, drop {drop:.3%}; the >= 30% drop of tests/test_learning.py is "
+          f"{'met' if drop >= 0.3 else 'NOT met'}; losses "
+          + json.dumps([round(v, 5) for v in losses]))
+    check(end < start, "the loss did not go down on a fixed batch")
+    return drop
 
 
 def _cuda_ms(fn, iters: int, flush) -> float:
@@ -267,9 +555,8 @@ def _cuda_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def lookup_bytes(bq: int, coords, itemsize: int) -> int:
-    """Bytes the lookup must move for these coords: each map value inside a
-    query's 8x8 patch per level read once, the coords read, the output written."""
+def patch_bytes(coords, itemsize: int) -> int:
+    """Bytes of the map values inside each query's two 8x8 patches (read once)."""
     import torch
 
     total = 0
@@ -278,7 +565,13 @@ def lookup_bytes(bq: int, coords, itemsize: int) -> int:
         lo = torch.floor(coords.double() * (0.5 ** level)) - 3  # (BQ, 2) patch start
         inside = ((lo + 8).clamp(max=size) - lo.clamp(min=0)).clamp(min=0)
         total += int((inside[:, 0] * inside[:, 1]).sum()) * itemsize
-    return total + bq * 2 * 4 + bq * 98 * itemsize
+    return total
+
+
+def lookup_bytes(bq: int, coords, itemsize: int) -> int:
+    """Bytes the lookup must move for these coords: the patch values read
+    once, the coords read, the output written."""
+    return patch_bytes(coords, itemsize) + bq * 2 * 4 + bq * 98 * itemsize
 
 
 def lookup_flops(bq: int) -> int:
@@ -286,6 +579,37 @@ def lookup_flops(bq: int) -> int:
     products and 3 sums; per query and level the fractions and their
     complements (4), and the level-1 halving of the centre (2)."""
     return bq * (98 * 11 + 2 * 4 + 2)
+
+
+def lookup_bwd_bytes(bq: int, coords, itemsize: int) -> int:
+    """Bytes the lookup backward must move: the patch values and the coords
+    read, g read (f32), both whole d_maps written (each query owns its
+    maps) and d_coords written."""
+    maps = MAP_SIZE * MAP_SIZE + (MAP_SIZE // 2) ** 2
+    return patch_bytes(coords, itemsize) + bq * 2 * 4 + bq * 98 * 4 + bq * maps * itemsize \
+        + bq * 2 * 4
+
+
+def lookup_bwd_flops(bq: int) -> int:
+    """f32 operations of the lookup backward: per cotangent-patch value four
+    weight products, four products and three sums (2 x 64 x 11); per window
+    tap two differences, two products and a sum for each of d/dx and d/dy,
+    and the product with g (98 x 12); the two sums over the taps (2 x 98);
+    per level the centre, fractions and weights (2 x 12); the level
+    combination (4)."""
+    return bq * (2 * 64 * 11 + 98 * 12 + 2 * 98 + 2 * 12 + 4)
+
+
+def splat_bytes(b: int, n: int, c: int, h: int, w: int, itemsize: int) -> int:
+    """Bytes the splat must move: g read once, the two corners (int32) and
+    four pair weights (f32) read once, d_img (f32) written once."""
+    return b * n * c * itemsize + b * n * 6 * 4 + b * h * w * c * 4
+
+
+def splat_flops(b: int, n: int, c: int) -> int:
+    """f32 operations of the splat: per sample and channel two products
+    u = wx * g, four products wy * u and four accumulating sums."""
+    return b * n * c * 10
 
 
 def library_lookup(c0, c1, coords):
@@ -308,50 +632,98 @@ def library_lookup(c0, c1, coords):
     return torch.cat(outs, 1)
 
 
-def phase_timing(corr_lookup, corr_lookup_plain, device):
-    """Phase 4: kernel, plain and library times at the main path's BQ=4096."""
+def bound(nbytes: int, flops: int) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "flops": flops, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_timing(k, device):
+    """Phase 7: kernel, plain and library times at each kernel's largest
+    main-path shape (the lookup also at the serving BQ=4096)."""
     import torch
 
-    bq = LOOKUP_BQS[-1]
+    from mrfa_tpu_torch.ops.corr_lookup import corr_lookup_bwd_plain, corr_lookup_plain
+    from mrfa_tpu_torch.ops.splat import splat_plain
+
     flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()  # noqa: E731  (256 MB > the 50 MB L2)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + 10)
-        lib_err = float((library_lookup(c0, c1, coords).float()
-                         - corr_lookup_plain(c0, c1, coords).float()).abs().max())
-        nbytes = lookup_bytes(bq, coords, c0.element_size())
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = lookup_flops(bq) / F32_FLOPS_PER_S * 1e3
+        name = dtype_name(dtype)
+        for bq in (LOOKUP_BQS[-1], TRAIN_LOOKUP_BQS[-1]):
+            c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + 10)
+            lib_err = float((library_lookup(c0, c1, coords).float()
+                             - corr_lookup_plain(c0, c1, coords).float()).abs().max())
+            row = {
+                "shape": f"bq={bq}",
+                "ms": _cuda_ms(lambda: k["corr_lookup"](c0, c1, coords), 50, flush),
+                "plain_ms": _cuda_ms(lambda: corr_lookup_plain(c0, c1, coords), 10, flush),
+                "library_ms": _cuda_ms(lambda: library_lookup(c0, c1, coords), 10, flush),
+                "library_max_abs_err": lib_err,
+                **bound(lookup_bytes(bq, coords, c0.element_size()), lookup_flops(bq)),
+            }
+            print(f"phase7 corr_lookup {name} bq={bq}: " + json.dumps(row))
+            rows[("corr_lookup", dtype, bq)] = row
+        # the lookup backward at the training step's full-resolution BQ
+        g = torch.randn(bq, 98, device=device).to(dtype)
+        leaves = [t.clone().float().requires_grad_(True) for t in (c0, c1, coords)]
+        lib_out = library_lookup(*leaves)
         row = {
-            "ms": _cuda_ms(lambda: corr_lookup(c0, c1, coords), 50, flush),
-            "plain_ms": _cuda_ms(lambda: corr_lookup_plain(c0, c1, coords), 20, flush),
-            "library_ms": _cuda_ms(lambda: library_lookup(c0, c1, coords), 20, flush),
-            "bytes": nbytes, "bytes_ms": bytes_ms,
-            "flops": lookup_flops(bq), "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_max_abs_err": lib_err,
+            "shape": f"bq={bq}",
+            "ms": _cuda_ms(lambda: k["corr_lookup_bwd"](c0, c1, coords, g), 20, flush),
+            "plain_ms": _cuda_ms(lambda: corr_lookup_bwd_plain(c0, c1, coords, g), 5, flush),
+            # autograd of the two-grid_sample yardstick, in f32 (grid_sample
+            # wants its grid in the map dtype, which bf16 cannot carry)
+            "library_ms": _cuda_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, g.float(), retain_graph=True), 5, flush),
+            **bound(lookup_bwd_bytes(bq, coords, c0.element_size()), lookup_bwd_flops(bq)),
         }
-        name = str(dtype).split(".")[-1]
-        print(f"phase4 corr_lookup {name} bq={bq}: " + json.dumps(row))
-        rows[dtype] = row
+        print(f"phase7 corr_lookup_bwd {name} bq={bq}: " + json.dumps(row))
+        rows[("corr_lookup_bwd", dtype)] = row
+        del c0, c1, coords, g, leaves, lib_out
+        # the splat at the largest warp: (B=10, N=65536, C=64) onto 256x256
+        res, c = SPLAT_SHAPES[-1]
+        args, ix, iy = splat_inputs(res, c, dtype, device, seed=SEED + 11)
+        gimg = args[0].float().transpose(1, 2).reshape(TRAIN_BATCH, c, 1, res * res)
+        img = torch.empty(TRAIN_BATCH, c, res, res, device=device)
+        grid = torch.stack([ix * (2.0 / (res - 1)) - 1.0, iy * (2.0 / (res - 1)) - 1.0],
+                           -1)[:, None]
+        lib = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+            gimg, img, grid, 0, 0, True, [True, False])
+        lib_err = float((lib()[0].permute(0, 2, 3, 1) - splat_plain(*args)).abs().max())
+        n = res * res
+        row = {
+            "shape": f"B={TRAIN_BATCH} n={n} c={c} h=w={res}",
+            "ms": _cuda_ms(lambda: k["splat"](*args), 20, flush),
+            "plain_ms": _cuda_ms(lambda: splat_plain(*args), 5, flush),
+            # grid_sampler_2d_backward's input gradient, f32 (yardstick only)
+            "library_ms": _cuda_ms(lib, 10, flush), "library_max_abs_err": lib_err,
+            **bound(splat_bytes(TRAIN_BATCH, n, c, res, res, args[0].element_size()),
+                    splat_flops(TRAIN_BATCH, n, c)),
+        }
+        print(f"phase7 splat {name} {row['shape']}: " + json.dumps(row))
+        rows[("splat", dtype)] = row
+        del args, ix, iy, gimg, img, grid
     return rows
 
 
-def phase_profile(animator, state, frames_dev):
-    """Phase 5: device kernel time by name over a few frames (torch.profiler
-    trace, written to build/frame_trace.json), and the device's idle share
-    of the window from the first kernel's start to the last one's end."""
+def _profile(fn, n: int, label: str, trace_name: str, by_op: bool = False):
+    """Device kernel time by name over `n` runs of `fn` (torch.profiler trace
+    written to build/), and the device's idle share of the window from the
+    first kernel's start to the last one's end. With `by_op`, also the ATen
+    operators with the most device time, by input shape."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for f in frames_dev[:n]:
-            animator.animate_frame(state, f)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_op) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    trace = Path(__file__).resolve().parent / "build" / "frame_trace.json"
+    trace = Path(__file__).resolve().parent / "build" / trace_name
     trace.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace))
     kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
@@ -363,11 +735,30 @@ def phase_profile(animator, state, frames_dev):
     for e in kernels:
         t, c = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (t + e["dur"], c + 1)
-    print(f"phase5 profile: {len(kernels) / n:.0f} device ops/frame, busy "
-          f"{busy / n / 1e3:.3f} ms/frame, window {window / n / 1e3:.3f} ms/frame, "
+    print(f"{label} profile: {len(kernels) / n:.0f} device ops/{trace_name.split('_')[0]}, "
+          f"busy {busy / n / 1e3:.3f} ms, window {window / n / 1e3:.3f} ms, "
           f"idle share {1 - busy / window:.4f}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"phase5   {t / n / 1e3:8.3f} ms/frame {c // n:5d}x  {name[:100]}")
+        print(f"{label}   {t / n / 1e3:8.3f} ms {c // n:5d}x  {name[:100]}")
+    for name, (t, c) in by_name.items():
+        if name.startswith(("void (anonymous namespace)::", "corr_lookup", "splat")) and (
+                "corr_lookup" in name or "splat" in name):
+            print(f"{label}   port kernel {t / n / 1e3:8.3f} ms {c // n:5d}x  {name[:100]}")
+    if by_op:
+        ops = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.key.startswith("aten::")]
+        self_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
+        for e in sorted(ops, key=self_us, reverse=True)[:8]:
+            print(f"{label}   op {self_us(e) / n / 1e3:8.3f} ms {e.count // n:5d}x  {e.key} "
+                  f"{str(e.input_shapes)[:120]}")
+
+
+def phase_profile(animator, state, frames_dev, trainer, batch):
+    """Phase 8: profiles of 3 serving frames and of one training step."""
+    frames = iter(frames_dev)
+    _profile(lambda: animator.animate_frame(state, next(frames)), 3, "phase8 serving",
+             "frame_trace.json")
+    _profile(lambda: trainer.step(batch), 1, "phase8 training", "step_trace.json", by_op=True)
 
 
 def main() -> int:
@@ -377,45 +768,70 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
 
-    from mrfa_tpu_torch.ops.corr_lookup import corr_lookup, corr_lookup_plain
+    from mrfa_tpu_torch.ops.corr_lookup import corr_lookup, corr_lookup_bwd
     from mrfa_tpu_torch.ops.cuda_build import build_all
+    from mrfa_tpu_torch.ops.splat import splat
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; TF32 off")
-    kernels = [corr_lookup]
+    kernels = {k.name: k for k in (corr_lookup, corr_lookup_bwd, splat)}
 
     t0 = time.perf_counter()
-    build_all([k.library for k in kernels])
-    for k in kernels:
+    build_all([k.library for k in kernels.values()])
+    for name, k in kernels.items():
         k.library.load()
-        print(f"build {k.name}: {k.library.build_seconds} s (None = already built), "
+        print(f"build {name}: {k.library.build_seconds} s (None = already built), "
               f"total {time.perf_counter() - t0:.2f} s")
         for line in k.library.build_log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"build {k.name}: {line.strip()}")
+                print(f"build {name}: {line.strip()}")
 
-    errs = phase_kernels(corr_lookup, corr_lookup_plain, device)
+    errs = phase_kernels(kernels, device)
     phase_gpu_vs_cpu()
-    animator, state, frames_dev, launches = phase_full_width(kernels, card)
-    times = phase_timing(corr_lookup, corr_lookup_plain, device)
-    phase_profile(animator, state, frames_dev)
+    animator, state, frames_dev, serve_launches = phase_serving(kernels, card)
+    phase_train_gpu_vs_cpu()
+    trainer, batch, train_launches, _ = phase_train_full_width(kernels, card)
+    phase_learning()
+    times = phase_timing(kernels, device)
+    phase_profile(animator, state, frames_dev, trainer, batch)
 
-    f32, bf16 = times[torch.float32], times[torch.bfloat16]
-    entry = {
-        "name": "corr_lookup", "route": "cuda",
-        "source": "mrfa_tpu_torch/csrc/corr_lookup.cu",
-        "replaces": "mrfa_tpu/ops/pallas_kernels.py:755",
-        "launches": launches["corr_lookup"],
-        "max_abs_err": errs[torch.float32], "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-        "max_abs_err_bf16": errs[torch.bfloat16], "ms_bf16": bf16["ms"],
-        "plain_ms_bf16": bf16["plain_ms"], "bound_ms_bf16": bf16["bound_ms"],
-        "library_ms_bf16": bf16["library_ms"], "bq": LOOKUP_BQS[-1],
-    }
-    print(json.dumps({"kernels": [entry]}))
+    f32, bf16 = torch.float32, torch.bfloat16
+    big = TRAIN_LOOKUP_BQS[-1]
+    entries = []
+    for name, source, replaces, also, row, row16 in (
+        ("corr_lookup", "corr_lookup.cu", "mrfa_tpu/ops/pallas_kernels.py:755",
+         "mrfa_tpu/ops/pallas_kernels.py:89",
+         times[("corr_lookup", f32, big)], times[("corr_lookup", bf16, big)]),
+        ("corr_lookup_bwd", "corr_lookup_bwd.cu", "mrfa_tpu/ops/pallas_kernels.py:432",
+         "mrfa_tpu/ops/pallas_kernels.py:574",
+         times[("corr_lookup_bwd", f32)], times[("corr_lookup_bwd", bf16)]),
+        ("splat", "splat.cu", "mrfa_tpu/ops/pallas_splat.py:72", None,
+         times[("splat", f32)], times[("splat", bf16)]),
+    ):
+        entry = {
+            "name": name, "route": "cuda", "source": f"mrfa_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": serve_launches[name] + train_launches[name],
+            "max_abs_err": errs[f32][name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "launches_by_path": {"serving": serve_launches[name],
+                                 "training": train_launches[name]},
+            "max_abs_err_bf16": errs[bf16][name], "ms_bf16": row16["ms"],
+            "plain_ms_bf16": row16["plain_ms"], "bound_ms_bf16": row16["bound_ms"],
+            "library_ms_bf16": row16["library_ms"],
+        }
+        if also:
+            entry["also_replaces"] = also
+        if name == "corr_lookup":
+            serve = times[("corr_lookup", f32, LOOKUP_BQS[-1])]
+            entry["serving_bq4096"] = {k: serve[k] for k in
+                                       ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

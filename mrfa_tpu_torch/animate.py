@@ -19,8 +19,8 @@ from mrfa_tpu_torch.ops.resize import antialias_downsample
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import resolve_device
 
-# JAX-model subtrees the port does not build (training-only modules)
-JAX_ONLY_MODULES = ("bg_predictor", "vgg")
+# JAX-model subtrees the port does not build
+JAX_ONLY_MODULES = ("bg_predictor",)
 
 
 def movement_scale(kp_source, kp_driving_initial) -> float:

@@ -73,10 +73,10 @@ class DenseMotionNetwork(nn.Module):
         """The source warped by each of the K+1 motions: (B, K+1, C, h, w)."""
         bs, c, h, w = source_image.shape
         k1 = sparse_motions.shape[1]
-        src = source_image[:, None].expand(bs, k1, c, h, w).reshape(bs * k1, c, h, w)
-        warped = grid_sample(src, sparse_motions.reshape(bs * k1, h, w, 2),
+        # the K+1 motions ride on the sample axis of one warp of the source
+        warped = grid_sample(source_image, sparse_motions.reshape(bs, k1 * h, w, 2),
                              align_corners=False)
-        return warped.reshape(bs, k1, c, h, w)
+        return warped.reshape(bs, c, k1, h, w).transpose(1, 2)
 
     def forward(
         self,

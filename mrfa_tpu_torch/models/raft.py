@@ -1,12 +1,14 @@
-"""RaftFlow, the multi-resolution motion refinement decoder: eval path, NCHW.
+"""RaftFlow, the multi-resolution motion refinement decoder, NCHW.
 
-Counterpart of mrfa_tpu/models/raft.py::RaftFlow without `prior_only`:
+Counterpart of mrfa_tpu/models/raft.py::RaftFlow without `prior_only`, in
+eval and train mode:
   - per-query 2-level correlation maps at the basic resolution (size/4),
     built as batched products of driving query features against source
     features (pooling either side of the volume is linear, so each level is
     one product against pooled features);
   - six refinement iterations over resolutions size/32 .. size, each with a
-    7x7 two-level window lookup (the `corr_lookup` kernel), the motion
+    7x7 two-level window lookup (`CorrLookupFn`: the `corr_lookup` kernel
+    forward, the `corr_lookup_bwd` kernel backward), the motion
     encoder, a context warp and the refine convs, with telescoping
     upsampling of the deltas on top of the prior flow;
   - per-scale feature warps, a coarse branch warped by the prior flow alone,
@@ -15,6 +17,13 @@ Counterpart of mrfa_tpu/models/raft.py::RaftFlow without `prior_only`:
 Flows are (B, 2, H, W) in pixels at their own resolution; they are turned
 into (B, H, W, 2) sampling grids at each warp. The lookup's window x offset
 runs along the first window axis (the reference's channel order).
+
+Training runs the same code with autograd: the levels are built once per
+driving resolution and the full-resolution ones are shared by the last
+iterations, with no activation checkpointing (the JAX package's remat
+regions and in-iteration level building exist for a 16 GB TPU chip; the
+training step fits the 80 GB card without them). The final image warp stays
+separate from the last context warp.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from torch import nn
 
 from mrfa_tpu_torch.models.generator import OcclusionAwareGenerator, pyramid_channels
 from mrfa_tpu_torch.nn.blocks import Hourglass, conv2d
-from mrfa_tpu_torch.ops.corr_lookup import corr_lookup
+from mrfa_tpu_torch.ops.corr_lookup import CorrLookupFn
 from mrfa_tpu_torch.ops.grid import coords_grid, kp2gaussian
 from mrfa_tpu_torch.ops.resize import avg_pool, resize_bilinear
 from mrfa_tpu_torch.ops.sampler import grid_sample, sample_pixel
@@ -157,7 +166,7 @@ class RaftFlow(nn.Module):
             flow_sample, id_sample = flow, id_grid
         hq = flow_sample.shape[-1]
         coords = _to_grid((flow_sample + id_sample) * scale).reshape(-1, 2).contiguous()
-        corr = corr_lookup(map0, map1, coords)  # (B*hq*hq, 98)
+        corr = CorrLookupFn.apply(map0, map1, coords)  # (B*hq*hq, 98)
         corr = corr.reshape(b, hq, hq, -1).permute(0, 3, 1, 2)
         if i > bri:
             corr = resize_bilinear(corr, res, align_corners=True)
@@ -194,12 +203,18 @@ class RaftFlow(nn.Module):
         return flow, occlusion, d_f_pre, d_occ_pre, flow_w, occ_logits
 
     def _warp_decode(self, features, flow_ws, occs, deformation, warp_img):
-        """Per-scale feature warps, the coarse prior-flow branch, and the decode."""
+        """Per-scale feature warps, the coarse prior-flow branch, and the decode.
+
+        The decode reads the coarse branch at every scale but the finest, so
+        that warp is not computed (the JAX package computes it and its
+        compiler drops it)."""
         out_warp_f, out_warp_f_c = [], []
         prior = deformation.permute(0, 3, 1, 2)  # (B, 2, h, w) normalized
         for i, (feat, flow_w) in enumerate(zip(features, flow_ws)):
             res = feat.shape[-1]
             out_warp_f.append(sample_pixel(feat, _to_grid(flow_w + _id_grid(res, flow_w))))
+            if i == len(features) - 1:
+                continue
             flow_res = (
                 deformation if i == self.basic_res_index
                 else _to_grid(resize_bilinear(prior, res, align_corners=True))

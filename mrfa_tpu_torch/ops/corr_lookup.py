@@ -1,18 +1,28 @@
-"""The serving correlation lookup: CUDA kernel wrapper and its plain version.
+"""The correlation window lookup and its backward: CUDA kernel wrappers,
+their plain versions, and the autograd Function that joins them.
 
-`corr_lookup(c0, c1, coords)` replaces the TPU kernel
-mrfa_tpu/ops/pallas_kernels.py::_corr_lookup_padded_kernel. On CUDA tensors it
-launches the hand-written kernel of `csrc/corr_lookup.cu` (built at first
-use) or raises; on CPU tensors it runs `corr_lookup_plain`, the same
-four-corner gather and blend in PyTorch. Channel l*49 + i*7 + j is the
-bilinear sample of level l at (cx/2^l + i - 3, cy/2^l + j - 3), zeros outside
-the map (the semantics of ops/corr.py::corr_block_lookup_levels_gather).
+`corr_lookup(c0, c1, coords)` replaces the TPU kernels
+mrfa_tpu/ops/pallas_kernels.py::_corr_lookup_padded_kernel (serving) and
+::_corr_lookup_kernel (the training forward): the port's unpadded y-major
+maps are the latter's input with x and y swapped, so one CUDA kernel,
+`csrc/corr_lookup.cu`, serves both. Channel l*49 + i*7 + j is the bilinear
+sample of level l at (cx/2^l + i - 3, cy/2^l + j - 3), zeros outside the map
+(the semantics of ops/corr.py::corr_block_lookup_levels_gather).
+
+`corr_lookup_bwd(c0, c1, coords, g)` replaces the lookup backward's
+::_patch_extract_kernel and ::_patch_scatter_kernel with one CUDA kernel,
+`csrc/corr_lookup_bwd.cu`. `CorrLookupFn` is the differentiable lookup of the
+training path.
+
+On CUDA tensors each wrapper launches its kernel (built at first use) or
+raises; on CPU tensors it runs its plain PyTorch version.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from mrfa_tpu_torch.ops.cuda_build import CudaLibrary
 
@@ -23,19 +33,32 @@ CHANNELS = 2 * WIN * WIN  # 98
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _level_plain(maps: torch.Tensor, centres: torch.Tensor) -> torch.Tensor:
-    """(BQ, h, w) maps, (BQ, 2) f32 centres -> (BQ, 49) f32 window samples."""
-    bq, h, w = maps.shape
-    flat = maps.float().reshape(bq, h * w)
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic dtype: f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _geometry(centres: torch.Tensor, h: int, w: int):
+    """Per query: the window's clamped integer corner x0, y0 (BQ,) and the
+    bilinear fractions fx, fy (BQ, 1, 1) of the unclamped centre."""
     x0f = torch.floor(centres[:, 0])
     y0f = torch.floor(centres[:, 1])
     fx = (centres[:, 0] - x0f)[:, None, None]
     fy = (centres[:, 1] - y0f)[:, None, None]
-    gx = 1.0 - fx
-    gy = 1.0 - fy
-    # clamped like the kernel: past this range the whole window is outside
+    # clamped like the kernels: past this range the whole window is outside
     x0 = x0f.clamp(-(RADIUS + 2), w + RADIUS).long()
     y0 = y0f.clamp(-(RADIUS + 2), h + RADIUS).long()
+    return x0, y0, fx, fy
+
+
+def _level_plain(maps: torch.Tensor, centres: torch.Tensor) -> torch.Tensor:
+    """(BQ, h, w) maps, (BQ, 2) centres -> (BQ, 49) window samples (f32, or
+    f64 for f64 maps)."""
+    bq, h, w = maps.shape
+    flat = maps.to(_acc(maps.dtype)).reshape(bq, h * w)
+    x0, y0, fx, fy = _geometry(centres, h, w)
+    gx = 1.0 - fx
+    gy = 1.0 - fy
     d = torch.arange(-RADIUS, RADIUS + 1, device=maps.device)
     xs = x0[:, None, None] + d[None, :, None]  # x offset on the first axis
     ys = y0[:, None, None] + d[None, None, :]
@@ -54,7 +77,9 @@ def _level_plain(maps: torch.Tensor, centres: torch.Tensor) -> torch.Tensor:
 
 
 def corr_lookup_plain(c0: torch.Tensor, c1: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: f32 blend, result in the maps' dtype."""
+    """Plain PyTorch version of the kernel: f32 blend, result in the maps'
+    dtype. (On the CPU it also takes f64 maps and coords, and then computes
+    in f64.)"""
     out = torch.cat([_level_plain(c0, coords), _level_plain(c1, coords * 0.5)], dim=1)
     return out.to(c0.dtype)
 
@@ -71,9 +96,10 @@ def _check(c0: torch.Tensor, c1: torch.Tensor, coords: torch.Tensor) -> None:
             f"level shapes disagree: c0 {tuple(c0.shape)}, c1 {tuple(c1.shape)}, "
             f"coords {tuple(coords.shape)}"
         )
-    if c0.dtype not in _DTYPES or c1.dtype != c0.dtype:
+    f64 = c0.dtype == torch.float64 and c0.device.type == "cpu"  # plain version only
+    if (c0.dtype not in _DTYPES and not f64) or c1.dtype != c0.dtype:
         raise TypeError(f"maps must both be float32 or bfloat16, got {c0.dtype}, {c1.dtype}")
-    if coords.dtype != torch.float32:
+    if coords.dtype != (torch.float64 if f64 else torch.float32):
         raise TypeError(f"coords must be float32, got {coords.dtype}")
     if not (c0.device == c1.device == coords.device):
         raise ValueError("c0, c1 and coords must lie on one device")
@@ -125,3 +151,113 @@ class CorrLookup:
 
 
 corr_lookup = CorrLookup()
+
+
+def _level_bwd_plain(maps: torch.Tensor, centres: torch.Tensor, g: torch.Tensor):
+    """One level's backward: (BQ, h, w) maps, (BQ, 2) centres, (BQ, 7, 7)
+    cotangent [x offset, y offset] in the arithmetic dtype -> (d_map
+    (BQ, h, w), dcx, dcy (BQ,)) in that dtype."""
+    bq, h, w = maps.shape
+    acc = g.dtype
+    x0, y0, fx, fy = _geometry(centres, h, w)
+    gx = 1.0 - fx
+    gy = 1.0 - fy
+    d = torch.arange(-RADIUS, RADIUS + 2, device=maps.device)  # the 8x8 patch
+    xs, ys = torch.broadcast_tensors(x0[:, None, None] + d[None, :, None],
+                                     y0[:, None, None] + d[None, None, :])
+    inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    idx = (ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)).reshape(bq, -1)
+    p8 = maps.to(acc).reshape(bq, h * w).gather(1, idx).reshape(bq, WIN + 1, WIN + 1) * inside
+    # a.e. derivatives of the blend; p8 is [x tap, y tap]
+    ddx = gy * (p8[:, 1:, :WIN] - p8[:, :WIN, :WIN]) + fy * (p8[:, 1:, 1:] - p8[:, :WIN, 1:])
+    ddy = gx * (p8[:, :WIN, 1:] - p8[:, :WIN, :WIN]) + fx * (p8[:, 1:, 1:] - p8[:, 1:, :WIN])
+    dcx = (g * ddx).sum((1, 2))
+    dcy = (g * ddy).sum((1, 2))
+    # cotangent patch: the four fraction-weighted shifts of g (pad = (y lo,
+    # y hi, x lo, x hi))
+    d8 = (gx * gy * F.pad(g, (0, 1, 0, 1)) + fx * gy * F.pad(g, (0, 1, 1, 0))
+          + gx * fy * F.pad(g, (1, 0, 0, 1)) + fx * fy * F.pad(g, (1, 0, 1, 0)))
+    # one spare column past the map takes the patch taps outside it
+    dmap = torch.zeros(bq, h * w + 1, dtype=acc, device=maps.device)
+    dmap.scatter_(1, torch.where(inside.reshape(bq, -1), idx, h * w), d8.reshape(bq, -1))
+    return dmap[:, :-1].reshape(bq, h, w), dcx, dcy
+
+
+def corr_lookup_bwd_plain(c0: torch.Tensor, c1: torch.Tensor, coords: torch.Tensor,
+                          g: torch.Tensor):
+    """Plain PyTorch version of the backward kernel: (d_c0, d_c1) in the maps'
+    dtype, zero outside each query's 8x8 patch, and f32 d_coords (BQ, 2)."""
+    g = g.to(_acc(c0.dtype)).reshape(-1, 2, WIN, WIN)
+    d0, dcx0, dcy0 = _level_bwd_plain(c0, coords, g[:, 0])
+    d1, dcx1, dcy1 = _level_bwd_plain(c1, coords * 0.5, g[:, 1])
+    dc = torch.stack([dcx0 + 0.5 * dcx1, dcy0 + 0.5 * dcy1], dim=-1)
+    return d0.to(c0.dtype), d1.to(c1.dtype), dc
+
+
+class CorrLookupBwd:
+    """Callable wrapper around the backward CUDA kernel, with its launch count."""
+
+    name = "corr_lookup_bwd"
+
+    def __init__(self):
+        self.launches = 0
+        self.library = CudaLibrary(
+            "corr_lookup_bwd.cu",
+            {
+                "mrfa_corr_lookup_bwd": (
+                    [ctypes.c_void_p] * 7
+                    + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p],
+                    ctypes.c_int,
+                )
+            },
+        )
+
+    def __call__(self, c0: torch.Tensor, c1: torch.Tensor, coords: torch.Tensor,
+                 g: torch.Tensor):
+        """Maps, coords as for the lookup and (BQ, 98) g -> (d_c0, d_c1, d_coords)."""
+        _check(c0, c1, coords)
+        if tuple(g.shape) != (c0.shape[0], CHANNELS) or g.device != c0.device:
+            raise ValueError(f"want g ({c0.shape[0]}, {CHANNELS}) on {c0.device}, got "
+                             f"{tuple(g.shape)} on {g.device}")
+        if c0.device.type == "cpu":
+            return corr_lookup_bwd_plain(c0, c1, coords, g)
+        if c0.device.type != "cuda":
+            raise ValueError(f"corr_lookup_bwd runs on cuda or cpu, not {c0.device}")
+        bq, h, w = c0.shape
+        g32 = g.float().contiguous()
+        d0 = torch.empty_like(c0)
+        d1 = torch.empty_like(c1)
+        dc = torch.empty((bq, 2), dtype=torch.float32, device=c0.device)
+        if bq == 0:  # nothing to launch
+            return d0, d1, dc
+        lib = self.library.load()
+        with torch.cuda.device(c0.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.mrfa_corr_lookup_bwd(
+                c0.data_ptr(), c1.data_ptr(), coords.data_ptr(), g32.data_ptr(),
+                d0.data_ptr(), d1.data_ptr(), dc.data_ptr(),
+                bq, h, w, int(c0.dtype == torch.bfloat16), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"corr_lookup_bwd kernel launch failed: CUDA error {rc}")
+        self.launches += 1
+        return d0, d1, dc
+
+
+corr_lookup_bwd = CorrLookupBwd()
+
+
+class CorrLookupFn(torch.autograd.Function):
+    """Differentiable lookup: the `corr_lookup` kernel forward, the
+    `corr_lookup_bwd` kernel backward (plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, c0, c1, coords):
+        ctx.save_for_backward(c0, c1, coords)
+        return corr_lookup(c0, c1, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        c0, c1, coords = ctx.saved_tensors
+        return corr_lookup_bwd(c0, c1, coords, g)

@@ -36,9 +36,12 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
 
 @functools.lru_cache(maxsize=None)
 def _interp_tensor(in_size, out_size, align_corners, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(
-        _interp_matrix(in_size, out_size, align_corners), dtype=dtype, device=device
-    )
+    # a normal tensor even when first asked for under inference mode (serving),
+    # so that training may save it for the backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(
+            _interp_matrix(in_size, out_size, align_corners), dtype=dtype, device=device
+        )
 
 
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = True) -> torch.Tensor:
@@ -79,8 +82,9 @@ def gaussian_blur_kernel(sigma: float) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _blur_weight(scale: float, channels: int, dtype, device) -> torch.Tensor:
     kernel = gaussian_blur_kernel((1.0 / scale - 1.0) / 2.0)
-    k = torch.as_tensor(kernel, dtype=dtype, device=device)
-    return k[None, None].expand(channels, 1, *k.shape).contiguous()
+    with torch.inference_mode(False):  # as in _interp_tensor
+        k = torch.as_tensor(kernel, dtype=dtype, device=device)
+        return k[None, None].expand(channels, 1, *k.shape).contiguous()
 
 
 def antialias_downsample(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -66,3 +66,69 @@ def test_corr_lookup_kernel_with_no_queries_launches_nothing(cuda):
     c0, c1, coords = _lookup_inputs(8, 16, torch.float32, cuda, seed=0)
     out = lookup(c0[:0], c1[:0], coords[:0])
     assert out.shape == (0, CHANNELS) and lookup.launches == 0
+
+
+def _splat_args(b, n, c, h, w, dtype, device, seed):
+    """Corners on, across and beyond every edge and random pair weights."""
+    from mrfa_tpu_torch.ops.sampler import _tap_weights
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    grad = torch.randn(b, n, c, generator=g, device=device).to(dtype)
+    ix = torch.rand(b, n, generator=g, device=device) * (w + 4) - 2
+    iy = torch.rand(b, n, generator=g, device=device) * (h + 4) - 2
+    x0, y0, wx, wy, vx0, vx1, vy0, vy1 = _tap_weights(ix, iy, h, w, True)
+    return (grad, y0, ((1 - wy) * vy0).contiguous(), (wy * vy1).contiguous(), x0,
+            ((1 - wx) * vx0).contiguous(), (wx * vx1).contiguous(), h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,n,c,h,w", [(2, 4096, 64, 64, 64), (3, 500, 3, 17, 23),
+                                       (1, 64, 512, 8, 8)])
+def test_splat_kernel_matches_plain(cuda, dtype, b, n, c, h, w):
+    from mrfa_tpu_torch.ops.splat import Splat, splat_plain
+
+    spl = Splat()
+    args = _splat_args(b, n, c, h, w, dtype, cuda, seed=n)
+    got = spl(*args)
+    want = splat_plain(*args)
+    torch.cuda.synchronize()
+    assert spl.launches == 1 and got.shape == (b, h, w, c) and got.dtype == torch.float32
+    # f32 atomics sum in a run-dependent order: the JAX package's hardware gate
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bq,size", [(64, 64), (1000, 64), (333, 32), (40, 6)])
+def test_corr_lookup_bwd_kernel_matches_plain(cuda, dtype, bq, size):
+    from mrfa_tpu_torch.ops.corr_lookup import CorrLookupBwd, corr_lookup_bwd_plain
+
+    bwd = CorrLookupBwd()
+    c0, c1, coords = _lookup_inputs(bq, size, dtype, cuda, seed=bq + size)
+    g = torch.randn(bq, CHANNELS, device=cuda).to(dtype)
+    got = bwd(c0, c1, coords, g)
+    want = corr_lookup_bwd_plain(c0, c1, coords, g)
+    torch.cuda.synchronize()
+    assert bwd.launches == 1
+    for a, b in zip(got[:2], want[:2]):
+        assert a.shape == b.shape and a.dtype == dtype
+        diff = (a.float() - b.float()).abs()
+        if dtype == torch.float32:  # same terms, order and roundings
+            assert float(diff.max()) <= 1e-6 * float(b.abs().max())
+        else:  # one bf16 ulp
+            m = b.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+            assert bool((diff <= torch.exp2(torch.floor(torch.log2(m)) - 7)).all())
+    # d_coords: sums of 98 terms in another order
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5 * max(1.0, float(want[2].abs().max()))
+    assert not got[0][-1].any() and not got[2][-1].any()  # the far-out centre
+
+
+def test_corr_lookup_function_backward_on_the_card(cuda):
+    from mrfa_tpu_torch.ops.corr_lookup import CorrLookupFn, corr_lookup_plain
+
+    c0, c1, coords = _lookup_inputs(500, 64, torch.float32, cuda, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (c0, c1, coords)]
+    g = torch.randn(500, CHANNELS, device=cuda)
+    got = torch.autograd.grad(CorrLookupFn.apply(*leaves), leaves, g)
+    want = torch.autograd.grad(corr_lookup_plain(*leaves), leaves, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)

@@ -11,9 +11,17 @@ import torch
 
 from mrfa_tpu_torch.animate import Animator
 from mrfa_tpu_torch.models.mrfa import MRFA
-from mrfa_tpu_torch.ops.corr_lookup import CorrLookup, corr_lookup, corr_lookup_plain
+from mrfa_tpu_torch.ops.corr_lookup import (
+    CorrLookup,
+    CorrLookupBwd,
+    corr_lookup,
+    corr_lookup_bwd_plain,
+    corr_lookup_plain,
+)
+from mrfa_tpu_torch.ops.splat import Splat, splat_plain
+from mrfa_tpu_torch.train.trainer import Trainer
 from mrfa_tpu_torch.utils.convert import load_jax_variables
-from tests.torch_parity import mtia_cfg
+from tests.torch_parity import mtia_cfg, train_cfg
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "mrfa_tpu_torch"
@@ -74,6 +82,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     assert Animator(model, model.state_dict(), device="cpu").device.type == "cpu"
 
 
+def test_trainer_raises_without_cuda_unless_cpu_is_asked(no_cuda):
+    cfg = train_cfg(64, blocks=3, depth=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
+        assert Trainer(cfg, device="cpu").device.type == "cpu"
+
+
 def _maps(bq=8, size=16, dtype=torch.float32, seed=0):
     g = torch.Generator().manual_seed(seed)
     c0 = torch.randn(bq, size, size, generator=g).to(dtype)
@@ -92,6 +108,67 @@ def test_lookup_wrapper_takes_plain_path_on_cpu_and_counts_no_launch():
         torch.testing.assert_close(out, corr_lookup_plain(c0, c1, coords), rtol=0, atol=0)
     assert wrapper.launches == 0 and corr_lookup.launches == shared
     assert wrapper.library._lib is None  # nothing was built or loaded
+
+
+def _splat_args(seed=0, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    b, n, c, h, w = 2, 30, 5, 6, 7
+    grad = torch.randn(b, n, c, generator=g).to(dtype)
+    y0 = torch.randint(-2, h + 2, (b, n), generator=g, dtype=torch.int32)
+    x0 = torch.randint(-2, w + 2, (b, n), generator=g, dtype=torch.int32)
+    ws = [torch.rand(b, n, generator=g) for _ in range(4)]
+    return (grad, y0, ws[0], ws[1], x0, ws[2], ws[3], h, w)
+
+
+def test_backward_wrappers_take_plain_paths_on_cpu_and_count_no_launch():
+    lookup_bwd, spl = CorrLookupBwd(), Splat()
+    for dtype in (torch.float32, torch.bfloat16):
+        c0, c1, coords = _maps(dtype=dtype)
+        g = torch.randn(8, 98)
+        for got, want in zip(lookup_bwd(c0, c1, coords, g),
+                             corr_lookup_bwd_plain(c0, c1, coords, g)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        args = _splat_args(dtype=dtype)
+        out = spl(*args)
+        assert out.shape == (2, 6, 7, 5) and out.dtype == torch.float32
+        torch.testing.assert_close(out, splat_plain(*args), rtol=0, atol=0)
+    assert lookup_bwd.launches == 0 and spl.launches == 0
+    assert lookup_bwd.library._lib is None and spl.library._lib is None
+
+
+def test_kernel_paths_raise_off_the_cpu_and_without_a_build(monkeypatch):
+    """No fallback: a tensor on another device raises, and so does a kernel
+    that cannot be built (this host has no nvcc)."""
+    c0, c1, coords = (t.to("meta") for t in _maps())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        CorrLookupBwd()(c0, c1, coords, torch.empty(8, 98, device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        Splat()(*(a.to("meta") if torch.is_tensor(a) else a for a in _splat_args()))
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr("os.access", lambda *a: False)
+    for wrapper in (CorrLookup(), CorrLookupBwd(), Splat()):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            wrapper.library.load()
+
+
+@pytest.mark.parametrize("case", ["g_shape", "g_dtype", "index_dtype", "weight_shape",
+                                  "contiguity"])
+def test_splat_wrapper_rejects_bad_inputs(case):
+    args = list(_splat_args())
+    if case == "g_shape":
+        args[0] = args[0][0]
+    elif case == "g_dtype":
+        args[0] = args[0].half()
+    elif case == "index_dtype":
+        args[1] = args[1].long()
+    elif case == "weight_shape":
+        args[2] = args[2][:, :-1]
+    elif case == "contiguity":
+        args[0] = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises((ValueError, TypeError)):
+        Splat()(*args)
 
 
 @pytest.mark.parametrize("case", ["c1_shape", "coords_shape", "dtype", "coords_dtype",
@@ -176,3 +253,18 @@ def test_load_jax_variables_is_strict():
     with pytest.raises(KeyError, match="not used"):
         load_jax_variables(_Tiny(), v)
     load_jax_variables(_Tiny(), v, skip=("bg_predictor", "vgg"))
+
+
+def test_training_after_serving_in_one_process():
+    """Constants cached while serving under inference mode (resize and blur
+    matrices) stay usable by the training step's backward."""
+    from tests.torch_parity import train_cfg
+
+    torch.manual_seed(0)
+    cfg = train_cfg(64, blocks=3, depth=1)
+    model = MRFA(cfg, device="cpu")
+    animator = Animator(model, model.state_dict(), device="cpu")
+    frames = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
+    animator.animate_frame(animator.begin(frames[0], frames[1]), frames[1])
+    trainer = Trainer(cfg, device="cpu", weights=model.state_dict())
+    assert np.isfinite(trainer.step({"source": frames, "driving": frames[::-1]})["loss"])

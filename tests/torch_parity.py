@@ -23,6 +23,21 @@ def image(b: int, size: int, c: int = 3, seed: int = 0) -> np.ndarray:
     return np.random.RandomState(seed).rand(b, size, size, c).astype(np.float32)
 
 
+def smooth_image(b: int, size: int, seed: int = 0) -> np.ndarray:
+    """(B, size, size, 3) low-frequency frames in [0, 1]: an 8x8 random image
+    per sample, bilinearly upsampled (align_corners=True). Real frames are
+    smooth; white noise would make every warp as sensitive to its flow as
+    the pixel steps are large."""
+    coarse = np.random.RandomState(seed).rand(b, 8, 8, 3)
+    src = np.linspace(0.0, 7.0, size)
+    lo = np.minimum(np.floor(src).astype(int), 6)
+    frac = src - lo
+    m = np.zeros((size, 8))
+    m[np.arange(size), lo] = 1.0 - frac
+    m[np.arange(size), lo + 1] = frac
+    return np.einsum("yi,bijc,xj->byxc", m, coarse, m).astype(np.float32)
+
+
 def jax_init(module, *args, **kwargs):
     """`module.init` under jit (eager flax runs op by op, several times slower)."""
     return jax.jit(lambda key: module.init(key, *args, **kwargs))(jax.random.PRNGKey(0))
@@ -97,3 +112,31 @@ def mtia_cfg(size: int = 64, blocks: int = 3, depth: int = 1) -> dict:
             },
         },
     }
+
+
+def train_cfg(size: int = 64, blocks: int = 3, depth: int = 1) -> dict:
+    """`mtia_cfg` with the training losses switched on: perceptual pyramid
+    over scales [1, 0.25] with weights [10]*5, equivariance 10 and jacobian
+    equivariance 10 under the reference's transform parameters; the
+    background predictor stays off (bg_start >= num_epochs)."""
+    cfg = mtia_cfg(size, blocks, depth)
+    cfg["train_params"].update({
+        "scales": [1, 0.25],
+        "loss_weights": {
+            "perceptual": [10, 10, 10, 10, 10], "equivariance": 10,
+            "equivariance_jacobian": 10,
+        },
+        "transform_params": {"sigma_affine": 0.05, "sigma_tps": 0.005, "points_tps": 5},
+        "lr": 2.0e-4, "epoch_milestones": [60, 90], "clip_grad": True, "clip": 10,
+    })
+    return cfg
+
+
+def transform_arrays(b: int, seed: int = 0):
+    """numpy (theta (B, 2, 3), control_params (B, 1, 25)) of one equivariance
+    transform, drawn as the reference does (sigma_affine 0.05, sigma_tps
+    0.005, 5x5 control points)."""
+    rng = np.random.RandomState(seed)
+    theta = (np.eye(2, 3)[None] + 0.05 * rng.randn(b, 2, 3)).astype(np.float32)
+    cpar = (0.005 * rng.randn(b, 1, 25)).astype(np.float32)
+    return theta, cpar
