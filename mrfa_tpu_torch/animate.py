@@ -4,8 +4,11 @@ Counterpart of mrfa_tpu/animate.py. Per clip, `Animator.begin` encodes the
 source keypoints, the first driving frame's keypoints, the 0.25x source and
 the decoder's source cache once; per frame, `animate_frame` encodes the
 driving keypoints, normalizes them relative to the first frame, runs dense
-motion and the RaftFlow decoder. Images go in and come out NHWC in [0, 1],
-as in the JAX package; inside, the model runs NCHW.
+motion and the RaftFlow decoder; `animate_chunk` does K frames in one call,
+on CUDA as K replays of the frame step captured once per clip as a CUDA
+graph (the eager frame is bound by the host's ~2300 dispatches). Images go in and come out NHWC in [0, 1], f32, as in the JAX package; inside,
+the model runs NCHW, in bf16 where the model's `compute_dtype` says so
+(precision.py), and then the Animator pre-casts the weights once.
 """
 from __future__ import annotations
 
@@ -15,7 +18,9 @@ import numpy as np
 import torch
 
 from mrfa_tpu_torch.models.mrfa import MRFA
+from mrfa_tpu_torch.ops import launches
 from mrfa_tpu_torch.ops.resize import antialias_downsample
+from mrfa_tpu_torch.precision import cast_params_for_inference
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import resolve_device
 
@@ -63,7 +68,39 @@ def normalize_kp(
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
+    return x.permute(0, 2, 3, 1).float()
+
+
+class FrameGraph:
+    """One clip's frame step captured as a CUDA graph. `replay(frame)` copies
+    the (B, H, W, 3) frame into the captured input, replays the step and
+    returns the generated (B, H, W, 3) image (a view of the graph's output,
+    overwritten by the next replay). The kernels' launch counts grow by the
+    captured launches at every replay."""
+
+    WARMUP_STEPS = 2  # eager steps before the capture
+
+    def __init__(self, step, clip_state, frame: torch.Tensor):
+        self.clip_state = clip_state
+        self.input = frame.clone()
+        side = torch.cuda.Stream(self.input.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # cuDNN and cuBLAS pick their kernels here
+            for _ in range(self.WARMUP_STEPS):
+                step(clip_state, self.input)
+        torch.cuda.current_stream().wait_stream(side)
+        before = launches.counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.output = step(clip_state, self.input)[0]
+        self.launches = {k: n - before[k] for k, n in launches.counts().items()}
+        launches.add(self.launches, -1)  # capturing launched nothing
+
+    def replay(self, frame: torch.Tensor) -> torch.Tensor:
+        self.input.copy_(frame)
+        self.graph.replay()
+        launches.add(self.launches)
+        return self.output
 
 
 class Animator:
@@ -88,12 +125,15 @@ class Animator:
         else:
             model.load_state_dict(weights)
         self.model = model.to(self.device).eval()
+        if model.compute_dtype is not None:
+            cast_params_for_inference(model, model.compute_dtype)
         self.relative = relative
         self.use_relative_jacobian = use_relative_jacobian
+        self._graph: Optional[FrameGraph] = None  # the last clip's, for animate_chunk
 
     def _image(self, image) -> torch.Tensor:
         """(H, W, 3) or (B, H, W, 3) in [0, 1] -> (B, 3, H, W) f32 on the device."""
-        x = torch.as_tensor(np.asarray(image) if not torch.is_tensor(image) else image)
+        x = torch.as_tensor(np.ascontiguousarray(image) if not torch.is_tensor(image) else image)
         x = x.to(device=self.device, dtype=torch.float32)
         if x.dim() == 3:
             x = x[None]
@@ -117,6 +157,9 @@ class Animator:
     @torch.inference_mode()
     def animate_frame(self, clip_state, driving_frame):
         """One frame step -> (generated, warped source, occlusion strip), NHWC."""
+        return self._frame_step(clip_state, driving_frame)
+
+    def _frame_step(self, clip_state, driving_frame):
         source, img_down, kp_source, kp_d0, scale, cache = clip_state
         model = self.model
         kp_driving = model.encode_kp(self._image(driving_frame))
@@ -133,15 +176,45 @@ class Animator:
         )
         return _nhwc(out), _nhwc(warp_img), _nhwc(occlusion)
 
+    @torch.inference_mode()
+    def animate_chunk(self, clip_state, driving_frames) -> torch.Tensor:
+        """K frames in one call: (K, H, W, 3) or (K, B, H, W, 3) -> the
+        generated (K, B, H, W, 3), each frame as `animate_frame` makes it."""
+        frames = self._frames(driving_frames)
+        if self.device.type != "cuda":
+            return torch.stack([self._frame_step(clip_state, f)[0] for f in frames])
+        graph = self._graph
+        if graph is None or graph.clip_state is not clip_state or graph.input.shape != frames.shape[1:]:
+            self._graph = None  # free the last clip's graph first
+            graph = self._graph = FrameGraph(self._frame_step, clip_state, frames[0])
+        out = torch.empty_like(frames)
+        for k, f in enumerate(frames):
+            out[k] = graph.replay(f)
+        return out
+
+    def _frames(self, frames) -> torch.Tensor:
+        """(K, H, W, 3) or (K, B, H, W, 3) -> (K, B, H, W, 3) on the device."""
+        x = torch.as_tensor(np.ascontiguousarray(frames) if not torch.is_tensor(frames) else frames)
+        x = x.to(device=self.device, dtype=torch.float32)
+        return x[:, None] if x.dim() == 4 else x
+
     def make_animation(
-        self, source_image, driving_video, adapt_movement_scale: bool = False
+        self, source_image, driving_video, adapt_movement_scale: bool = False, chunk: int = 1
     ) -> List[np.ndarray]:
-        """Animate a (T, H, W, 3) driving clip frame by frame -> T (H, W, 3) arrays."""
+        """Animate a (T, H, W, 3) driving clip -> T (H, W, 3) arrays, `chunk`
+        frames a call (the tail that fills no chunk frame by frame)."""
         clip_state = self.begin(source_image, driving_video[0], adapt_movement_scale)
-        return [
-            self.animate_frame(clip_state, frame)[0][0].cpu().numpy()
-            for frame in driving_video
-        ]
+        out: List[np.ndarray] = []
+        t, n = 0, len(driving_video)
+        while t < n:
+            if chunk > 1 and n - t >= chunk:
+                gen = self.animate_chunk(clip_state, driving_video[t:t + chunk])
+                out.extend(gen[:, 0].cpu().numpy())
+                t += chunk
+            else:
+                out.append(self.animate_frame(clip_state, driving_video[t])[0][0].cpu().numpy())
+                t += 1
+        return out
 
     def find_best_frame(self, source_image, driving_video) -> int:
         """Index of the driving frame whose keypoints are closest to the source's."""
@@ -151,3 +224,14 @@ class Animator:
             for frame in driving_video
         ]
         return int(np.argmin(dists))
+
+    def make_animation_from_best_frame(
+        self, source_image, driving_video, adapt_movement_scale: bool = False
+    ) -> List[np.ndarray]:
+        """Animate forward and backward from the driving frame that best matches
+        the source, so that relative motion starts from the closest pose."""
+        i = self.find_best_frame(source_image, driving_video)
+        forward = self.make_animation(source_image, driving_video[i:], adapt_movement_scale)
+        backward = self.make_animation(source_image, driving_video[: i + 1][::-1],
+                                       adapt_movement_scale)
+        return backward[::-1] + forward[1:]

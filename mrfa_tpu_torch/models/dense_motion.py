@@ -8,9 +8,13 @@ deformation, and occlusion logits.
 
 Layouts: the returned `deformation` is a (B, h, w, 2) normalized grid, as
 `F.grid_sample` takes it; `occlusion` logits are (B, 1, h, w).
+
+Under the bf16 policy (`compute_dtype`, see precision.py) the source pixels
+are warped in bf16; products of mixed dtypes promote, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -27,12 +31,19 @@ from mrfa_tpu_torch.ops.resize import antialias_downsample
 from mrfa_tpu_torch.ops.sampler import grid_sample
 
 
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """torch.einsum over operands cast to their promoted dtype (as jnp.einsum)."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in operands))
+    return torch.einsum(equation, *(t.to(dtype) for t in operands))
+
+
 class DenseMotionNetwork(nn.Module):
     def __init__(self, block_expansion=64, num_blocks=5, max_features=1024, num_kp=10,
                  num_channels=3, estimate_occlusion_map=True, scale_factor=0.25,
-                 kp_variance=0.01):
+                 kp_variance=0.01, compute_dtype=None):
         super().__init__()
         k1 = num_kp + 1
+        self.compute_dtype = compute_dtype
         self.scale_factor = scale_factor
         self.kp_variance = kp_variance
         self.hourglass = Hourglass(
@@ -61,11 +72,11 @@ class DenseMotionNetwork(nn.Module):
             # inv_ex: no host sync for the singularity check
             inv_d = torch.linalg.inv_ex(kp_driving["jacobian"]).inverse
             jac = torch.matmul(kp_source["jacobian"], inv_d)
-            coordinate_grid = torch.einsum("bkij,bkhwj->bkhwi", jac, coordinate_grid)
+            coordinate_grid = einsum("bkij,bkhwj->bkhwi", jac, coordinate_grid)
         driving_to_source = coordinate_grid + kp_s[:, :, None, None, :]
         bg_grid = grid[None, None].expand(bs, 1, h, w, 2)
         if bg_param is not None:
-            bgh = torch.einsum("bij,bkhwj->bkhwi", bg_param, to_homogeneous(bg_grid))
+            bgh = einsum("bij,bkhwj->bkhwi", bg_param, to_homogeneous(bg_grid))
             bg_grid = from_homogeneous(bgh)
         return torch.cat([bg_grid, driving_to_source], dim=1)
 
@@ -73,6 +84,8 @@ class DenseMotionNetwork(nn.Module):
         """The source warped by each of the K+1 motions: (B, K+1, C, h, w)."""
         bs, c, h, w = source_image.shape
         k1 = sparse_motions.shape[1]
+        if self.compute_dtype is not None:
+            source_image = source_image.to(self.compute_dtype)
         # the K+1 motions ride on the sample axis of one warp of the source
         warped = grid_sample(source_image, sparse_motions.reshape(bs, k1 * h, w, 2),
                              align_corners=False)
@@ -97,7 +110,7 @@ class DenseMotionNetwork(nn.Module):
         out = {
             "sparse_deformed": deformed,
             "mask": mask,
-            "deformation": torch.einsum("bkhwc,bkhw->bhwc", sparse_motion, mask),
+            "deformation": einsum("bkhwc,bkhw->bhwc", sparse_motion, mask),
         }
         if self.occlusion is not None:
             out["occlusion"] = self.occlusion(prediction)

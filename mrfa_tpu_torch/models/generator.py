@@ -33,7 +33,9 @@ def pyramid_channels(block_expansion=64, max_features=512, num_up_blocks=5) -> L
 
 class OcclusionAwareGenerator(nn.Module):
     def __init__(self, num_channels=3, block_expansion=64, max_features=512,
-                 num_up_blocks=5):
+                 num_up_blocks=5, coarse_branch=True):
+        """`coarse_branch`: build the channel blocks that merge the
+        prior-warped features (RaftFlow without `prior_only`)."""
         super().__init__()
         be, mf, n = block_expansion, max_features, num_up_blocks
         self.num_up_blocks = n
@@ -50,7 +52,8 @@ class OcclusionAwareGenerator(nn.Module):
             UpBlock2d(cout, cin) for cin, cout in zip(reversed(ins), reversed(outs))
         )
         self.resblock = nn.ModuleList(ResBlock2d(c) for c in reversed(outs))
-        self.channel_block = nn.ModuleList(ChannelBlock2d(2 * c) for c in reversed(outs))
+        if coarse_branch:
+            self.channel_block = nn.ModuleList(ChannelBlock2d(2 * c) for c in reversed(outs))
         self.final = conv2d(be, num_channels, 7, padding=3)
 
     def encode(self, x: torch.Tensor) -> List[torch.Tensor]:

@@ -19,6 +19,7 @@ from mrfa_tpu_torch.models.dense_motion import DenseMotionNetwork
 from mrfa_tpu_torch.models.raft import RaftFlow
 from mrfa_tpu_torch.models.tokenpose import TokenPoseB
 from mrfa_tpu_torch.nn.vgg import Vgg19
+from mrfa_tpu_torch.precision import apply_compute_dtype
 from mrfa_tpu_torch.ops.resize import antialias_downsample
 from mrfa_tpu_torch.ops.tps import (
     RandomTransformParams,
@@ -55,9 +56,14 @@ class MRFA(nn.Module):
     `utils.convert.load_jax_variables`.
     """
 
-    def __init__(self, cfg: Dict[str, Any], device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, cfg: Dict[str, Any], device: Optional[Union[str, torch.device]] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        """`compute_dtype`: None (f32 throughout, the default) or torch.bfloat16
+        for the serving policy of `precision.py`; `Animator` then pre-casts
+        the weights it covers."""
         super().__init__()
         dev = resolve_device(device)
+        self.compute_dtype = compute_dtype
         tp = cfg["train_params"]
         prior = tp["prior_model"]
         if prior != "mtia":
@@ -66,15 +72,18 @@ class MRFA(nn.Module):
         self.loss_weights = tp.get("loss_weights", {})
         self.transform_params = tp.get("transform_params", {})
         self.encoder = mtia_encoder_from_cfg(cfg["mtia_kp_detector"])
-        self.dense_motion = DenseMotionNetwork(**cfg["dense_motion"])
+        self.dense_motion = DenseMotionNetwork(**cfg["dense_motion"],
+                                               compute_dtype=compute_dtype)
         # remat and the lookup-dispatch keys only steer the JAX package's TPU paths
         raft_cfg = {
             k: v for k, v in cfg["raft_flow"].items()
             if k not in ("remat", "fast_lookup", "lookup_impl")
         }
-        self.decoder = RaftFlow(**raft_cfg)
+        self.decoder = RaftFlow(**raft_cfg, compute_dtype=compute_dtype)
         if sum(self.loss_weights.get("perceptual", [0])) != 0:
             self.vgg = Vgg19()
+        if compute_dtype is not None:
+            apply_compute_dtype(self, compute_dtype)
         self.to(dev)
         self.eval()
 

@@ -1,7 +1,6 @@
 """RaftFlow, the multi-resolution motion refinement decoder, NCHW.
 
-Counterpart of mrfa_tpu/models/raft.py::RaftFlow without `prior_only`, in
-eval and train mode:
+Counterpart of mrfa_tpu/models/raft.py::RaftFlow, in eval and train mode:
   - per-query 2-level correlation maps at the basic resolution (size/4),
     built as batched products of driving query features against source
     features (pooling either side of the volume is linear, so each level is
@@ -13,6 +12,13 @@ eval and train mode:
     upsampling of the deltas on top of the prior flow;
   - per-scale feature warps, a coarse branch warped by the prior flow alone,
     and the generator decode.
+
+With `prior_only` it is the generator alone, decoding the source features
+warped by the dense-motion prior (no refinement, no correlation).
+
+Under the bf16 policy (`compute_dtype`, see precision.py) the final image
+warp reads bf16 pixels; the correlation maps are bf16 because the features
+they are built from are.
 
 Flows are (B, 2, H, W) in pixels at their own resolution; they are turned
 into (B, H, W, 2) sampling grids at each warp. The lookup's window x offset
@@ -95,10 +101,11 @@ class RaftFlow(nn.Module):
         generator: Optional[Dict[str, Any]] = None,
         driving_encoder: Optional[Dict[str, Any]] = None,
         source_encoder: Optional[Dict[str, Any]] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if prior_only:
-            raise NotImplementedError("prior_only RaftFlow is not ported yet")
+        self.prior_only = prior_only
+        self.compute_dtype = compute_dtype
         self.dim = dim
         self.size = size
         self.scale = dim**-0.5
@@ -106,7 +113,9 @@ class RaftFlow(nn.Module):
         self.total_iter = int(math.log2(32)) + 1  # 6 fixed refinement steps
         self.basic_res_index = int(math.log2(self.h // (size // 32)))
         gen_cfg = dict(generator or {})
-        self.generator = OcclusionAwareGenerator(**gen_cfg)
+        self.generator = OcclusionAwareGenerator(**gen_cfg, coarse_branch=not prior_only)
+        if prior_only:
+            return
         self.kp = Hourglass(**(driving_encoder or {}))
         self.kp_img = Hourglass(**(source_encoder or {}))
         self.kp_head = conv2d(self.kp.out_filters, dim, 1)
@@ -127,6 +136,8 @@ class RaftFlow(nn.Module):
         generator feature pyramid and the source correlation features, plain
         (f_s) and 2x2-pooled (f_s_p), each (B, n, dim)."""
         feature = self.generator.encode(img_full)
+        if self.prior_only:
+            return {"feature": feature}
         h, w = img.shape[-2:]
         g_s = kp2gaussian(kp_s, (h, w), 0.1) + self.pos_embedding
         k_s = self.kp_img_head(self.kp_img(torch.cat([g_s, img], dim=1)))  # (B,dim,h,w)
@@ -222,6 +233,28 @@ class RaftFlow(nn.Module):
             out_warp_f_c.append(grid_sample(feat, flow_res, align_corners=False))
         return self.generator.decode(out_warp_f, warp_img, occs, out_warp_f_c)
 
+    def _prior_only_forward(self, dense_motion, feature, img):
+        """Decode the source features warped by the prior alone: each scale
+        takes the prior grid and occlusion resized to it (align_corners=True),
+        and the image is warped by the finest one."""
+        deformation = dense_motion["deformation"]  # (B, h, w, 2) normalized
+        prior = deformation.permute(0, 3, 1, 2)
+        occlusion = dense_motion["occlusion"]  # logits (B, 1, h, w)
+        out_warp_f, out_occlusion = [], []
+        for feat in feature[: self.total_iter]:
+            res = feat.shape[-1]
+            if res != deformation.shape[1]:
+                flow_res = _to_grid(resize_bilinear(prior, res, align_corners=True))
+                occlusion_res = resize_bilinear(occlusion, res, align_corners=True)
+            else:
+                flow_res, occlusion_res = deformation, occlusion
+            out_warp_f.append(grid_sample(feat, flow_res, align_corners=False))
+            out_occlusion.append(torch.sigmoid(occlusion_res))
+        warp_img = grid_sample(img, flow_res, align_corners=False)
+        out = self.generator.decode(out_warp_f, warp_img, out_occlusion)
+        vis = [resize_bilinear(o, self.size, align_corners=True) for o in out_occlusion]
+        return out, warp_img, torch.cat(vis, dim=3)
+
     def forward(
         self,
         kp_s: torch.Tensor,
@@ -236,6 +269,9 @@ class RaftFlow(nn.Module):
         if source_cache is None:
             source_cache = self.encode_source(kp_s, img, img_full)
         feature = source_cache["feature"]
+        img_cast = img_full if self.compute_dtype is None else img_full.to(self.compute_dtype)
+        if self.prior_only:
+            return self._prior_only_forward(dense_motion, feature, img_cast)
         f_s, f_s_p = source_cache["f_s"], source_cache["f_s_p"]
         h, w = img.shape[-2:]
 
@@ -274,7 +310,7 @@ class RaftFlow(nn.Module):
 
         # as the reference: the final image warp uses the last iteration's
         # pre-refinement flow
-        warp_img = sample_pixel(img_full, _to_grid(flow + _id_grid(self.size, flow)))
+        warp_img = sample_pixel(img_cast, _to_grid(flow + _id_grid(self.size, flow)))
         out_occlusion = [torch.sigmoid(o) for o in out_occ_logits]
         out = self._warp_decode(
             feature[: self.total_iter], out_flow_w, out_occlusion, deformation, warp_img

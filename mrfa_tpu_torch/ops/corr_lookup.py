@@ -96,15 +96,21 @@ def _check(c0: torch.Tensor, c1: torch.Tensor, coords: torch.Tensor) -> None:
             f"level shapes disagree: c0 {tuple(c0.shape)}, c1 {tuple(c1.shape)}, "
             f"coords {tuple(coords.shape)}"
         )
+    _check_types((c0, c1), coords)
+
+
+def _check_types(maps, coords: torch.Tensor) -> None:
+    """The dtype, device and layout rules every lookup wrapper shares."""
+    c0 = maps[0]
     f64 = c0.dtype == torch.float64 and c0.device.type == "cpu"  # plain version only
-    if (c0.dtype not in _DTYPES and not f64) or c1.dtype != c0.dtype:
-        raise TypeError(f"maps must both be float32 or bfloat16, got {c0.dtype}, {c1.dtype}")
+    if (c0.dtype not in _DTYPES and not f64) or any(m.dtype != c0.dtype for m in maps):
+        raise TypeError(f"maps must be float32 or bfloat16, got {[m.dtype for m in maps]}")
     if coords.dtype != (torch.float64 if f64 else torch.float32):
         raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if not (c0.device == c1.device == coords.device):
-        raise ValueError("c0, c1 and coords must lie on one device")
-    if not (c0.is_contiguous() and c1.is_contiguous() and coords.is_contiguous()):
-        raise ValueError("c0, c1 and coords must be contiguous")
+    if any(m.device != coords.device for m in maps):
+        raise ValueError("maps and coords must lie on one device")
+    if not (all(m.is_contiguous() for m in maps) and coords.is_contiguous()):
+        raise ValueError("maps and coords must be contiguous")
 
 
 class CorrLookup:
@@ -261,3 +267,124 @@ class CorrLookupFn(torch.autograd.Function):
     def backward(ctx, g):
         c0, c1, coords = ctx.saved_tensors
         return corr_lookup_bwd(c0, c1, coords, g)
+
+
+# --- the pooled entry: one map per query, level 1 its 2x2 average pool ---
+
+
+def _pool(corr: torch.Tensor) -> torch.Tensor:
+    """(BQ, h, w) -> (BQ, h/2, w/2) 2x2 means (kernel = stride = 2)."""
+    return F.avg_pool2d(corr, 2)
+
+
+def _fold(d0: torch.Tensor, d1: torch.Tensor) -> torch.Tensor:
+    """d0 + d1 through the 2x2 pool's transpose: each map value receives
+    d1[y//2, x//2] / 4."""
+    return d0 + d1.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2) * 0.25
+
+
+def _check_pooled(corr: torch.Tensor, coords: torch.Tensor, g=None) -> None:
+    if (corr.dim() != 3 or corr.shape[1] % 2 or corr.shape[2] % 2 or coords.dim() != 2
+            or tuple(coords.shape) != (corr.shape[0], 2)):
+        raise ValueError(f"want corr (BQ, h, w) with h and w even and coords (BQ, 2), got "
+                         f"{tuple(corr.shape)}, {tuple(coords.shape)}")
+    _check_types((corr,), coords)
+    if g is not None and (tuple(g.shape) != (corr.shape[0], CHANNELS) or g.device != corr.device):
+        raise ValueError(f"want g ({corr.shape[0]}, {CHANNELS}) on {corr.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+
+
+def corr_lookup_pooled_bwd_plain(corr: torch.Tensor, coords: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch version of the pooled backward kernel: the maps in f32
+    (f64 for f64 maps), level 1 pooled from them, each level's backward, and
+    the fold. Returns (d_corr in corr's dtype, f32 d_coords (BQ, 2))."""
+    c0 = corr.to(_acc(corr.dtype))
+    g = g.to(c0.dtype).reshape(-1, 2, WIN, WIN)
+    d0, dcx0, dcy0 = _level_bwd_plain(c0, coords, g[:, 0])
+    d1, dcx1, dcy1 = _level_bwd_plain(_pool(c0), coords * 0.5, g[:, 1])
+    dc = torch.stack([dcx0 + 0.5 * dcx1, dcy0 + 0.5 * dcy1], dim=-1)
+    return _fold(d0, d1).to(corr.dtype), dc
+
+
+class CorrLookupPooledBwd:
+    """Callable wrapper around the pooled backward CUDA kernel
+    (`csrc/corr_lookup_pooled_bwd.cu`), with its launch count."""
+
+    name = "corr_lookup_pooled_bwd"
+
+    def __init__(self):
+        self.launches = 0
+        self.library = CudaLibrary(
+            "corr_lookup_pooled_bwd.cu",
+            {
+                "mrfa_corr_lookup_pooled_bwd": (
+                    [ctypes.c_void_p] * 5
+                    + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p],
+                    ctypes.c_int,
+                )
+            },
+        )
+
+    def __call__(self, corr: torch.Tensor, coords: torch.Tensor, g: torch.Tensor):
+        """(BQ, h, w) maps, (BQ, 2) coords and (BQ, 98) g -> (d_corr, d_coords)."""
+        _check_pooled(corr, coords, g)
+        if corr.device.type == "cpu":
+            return corr_lookup_pooled_bwd_plain(corr, coords, g)
+        if corr.device.type != "cuda":
+            raise ValueError(f"corr_lookup_pooled_bwd runs on cuda or cpu, not {corr.device}")
+        bq, h, w = corr.shape
+        g32 = g.float().contiguous()
+        dcorr = torch.empty_like(corr)
+        dc = torch.empty((bq, 2), dtype=torch.float32, device=corr.device)
+        if bq == 0:  # nothing to launch
+            return dcorr, dc
+        lib = self.library.load()
+        with torch.cuda.device(corr.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.mrfa_corr_lookup_pooled_bwd(
+                corr.data_ptr(), coords.data_ptr(), g32.data_ptr(), dcorr.data_ptr(),
+                dc.data_ptr(), bq, h, w, int(corr.dtype == torch.bfloat16), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"corr_lookup_pooled_bwd kernel launch failed: CUDA error {rc}")
+        self.launches += 1
+        return dcorr, dc
+
+
+corr_lookup_pooled_bwd = CorrLookupPooledBwd()
+
+
+def corr_lookup_pooled(corr: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """The pooled lookup's forward: (BQ, h, w) maps and (BQ, 2) coords ->
+    (BQ, 98) in corr's dtype. Level 1 is `F.avg_pool2d(corr, 2)` in corr's
+    dtype; both levels go through the `corr_lookup` kernel."""
+    _check_pooled(corr, coords)
+    return corr_lookup(corr, _pool(corr), coords)
+
+
+def corr_lookup_pooled_bwd_b3(corr: torch.Tensor, coords: torch.Tensor, g: torch.Tensor):
+    """The pooled backward by the other route: the two-level `corr_lookup_bwd`
+    kernel on (corr, its pool) and a PyTorch fold of d_c1 through the pool's
+    transpose. The same function as `corr_lookup_pooled_bwd` (in bf16 the
+    pooled map and d_c1 are rounded to bf16 on the way)."""
+    _check_pooled(corr, coords, g)
+    d0, d1, dc = corr_lookup_bwd(corr, _pool(corr), coords, g)
+    return _fold(d0.float(), d1.float()).to(corr.dtype), dc
+
+
+class CorrLookupPooledFn(torch.autograd.Function):
+    """Differentiable pooled lookup, the counterpart of
+    mrfa_tpu/ops/pallas_kernels.py::corr_block_lookup_pallas: the
+    `corr_lookup` kernel forward and the `corr_lookup_pooled_bwd` kernel
+    backward (plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, corr, coords):
+        ctx.save_for_backward(corr, coords)
+        return corr_lookup_pooled(corr, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        corr, coords = ctx.saved_tensors
+        return corr_lookup_pooled_bwd(corr, coords, g)

@@ -132,3 +132,96 @@ def test_corr_lookup_function_backward_on_the_card(cuda):
     want = torch.autograd.grad(corr_lookup_plain(*leaves), leaves, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bq,size", [(64, 64), (1000, 64), (333, 32), (40, 6)])
+def test_corr_lookup_pooled_bwd_kernel_matches_plain(cuda, dtype, bq, size):
+    from mrfa_tpu_torch.ops.corr_lookup import (
+        CorrLookupPooledBwd,
+        corr_lookup_pooled_bwd_plain,
+    )
+
+    bwd = CorrLookupPooledBwd()
+    corr, _, coords = _lookup_inputs(bq, size, dtype, cuda, seed=bq + size)
+    g = torch.randn(bq, CHANNELS, device=cuda)
+    got = bwd(corr, coords, g)
+    want = corr_lookup_pooled_bwd_plain(corr, coords, g)
+    torch.cuda.synchronize()
+    assert bwd.launches == 1
+    assert got[0].shape == corr.shape and got[0].dtype == dtype
+    # d_corr depends on g and the fractions alone: bit-exact in f32, one
+    # rounding of the same f32 sum in bf16
+    assert torch.equal(got[0], want[0])
+    # d_coords: sums of 98 terms in another order
+    assert float((got[1] - want[1]).abs().max()) <= 2e-5 * max(1.0, float(want[1].abs().max()))
+    assert not got[0][-1].any() and not got[1][-1].any()  # the far-out centre
+
+
+@pytest.mark.parametrize("bq,size,qb", [(4096, 64, 16), (64, 16, 8), (96, 64, 32)])
+def test_stream_probe_kernel_is_bit_exact(cuda, bq, size, qb):
+    from mrfa_tpu_torch.ops.stream_probe import StreamProbe, stream_probe_plain
+
+    probe = StreamProbe()
+    corr = torch.randn(bq, size, size, device=cuda)
+    c0 = corr.reshape(bq * size, size)
+    c1 = torch.nn.functional.avg_pool2d(corr, 2).reshape(bq * size // 2, size // 2)
+    for second in (c1, None):
+        got = probe(c0, second, bq, qb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, stream_probe_plain(c0, second, bq, qb))
+    assert probe.launches == 2
+
+
+def test_corr_lookup_pooled_function_on_the_card(cuda):
+    from mrfa_tpu_torch.ops.corr_lookup import CorrLookupPooledFn, corr_lookup_plain
+
+    corr, _, coords = _lookup_inputs(500, 64, torch.float32, cuda, seed=2)
+    leaves = [t.clone().requires_grad_(True) for t in (corr, coords)]
+    g = torch.randn(500, CHANNELS, device=cuda)
+    got = torch.autograd.grad(CorrLookupPooledFn.apply(*leaves), leaves, g)
+    pooled = torch.nn.functional.avg_pool2d(leaves[0], 2)
+    want = torch.autograd.grad(corr_lookup_plain(leaves[0], pooled, leaves[1]), leaves, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+
+
+def _small_cfg(size=64, blocks=3, depth=1):
+    """config/vox1.yaml's MTIA model cut to 64 px, 3-block hourglasses and a
+    1-layer TokenPose (every width kept)."""
+    from pathlib import Path
+
+    from mrfa_tpu_torch.config import load_config, model_config
+
+    cfg = model_config(load_config(str(Path(__file__).resolve().parents[1] / "config" / "vox1.yaml")))
+    cfg["dense_motion"]["num_blocks"] = blocks
+    model = cfg["mtia_kp_detector"]["MODEL"]
+    model["TRANSFORMER_DEPTH"], model["IMAGE_SIZE"] = depth, [size, size]
+    raft = cfg["raft_flow"]
+    raft["size"] = size
+    for enc in ("driving_encoder", "source_encoder"):
+        raft[enc]["num_blocks"] = blocks
+    return cfg
+
+
+def test_animate_chunk_graph_equals_frame_by_frame(cuda):
+    from mrfa_tpu_torch.animate import Animator, FrameGraph
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.ops import launches
+
+    torch.manual_seed(0)
+    model = MRFA(_small_cfg())
+    animator = Animator(model, model.state_dict())
+    rng = np.random.RandomState(0)
+    source = rng.rand(64, 64, 3).astype(np.float32)
+    frames = rng.rand(5, 64, 64, 3).astype(np.float32)
+    state = animator.begin(source, frames[0])
+    want = torch.stack([animator.animate_frame(state, f)[0] for f in frames])
+    before = launches.counts()["corr_lookup"]
+    got = animator.animate_chunk(state, frames)  # captures the graph
+    again = animator.animate_chunk(state, frames[::-1].copy())  # replays it
+    torch.cuda.synchronize()
+    assert got.shape == (5, 1, 64, 64, 3)
+    assert torch.equal(got, want) and torch.equal(again, want.flip(0))
+    # 6 lookups a frame step: the eager warm-up steps and 10 replays
+    assert launches.counts()["corr_lookup"] - before == 6 * (FrameGraph.WARMUP_STEPS + 10)
