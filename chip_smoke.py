@@ -11,10 +11,13 @@ and runs these phases; any failure exits non-zero:
 
   1. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, in f32 and bf16: the lookup forward at the serving and
-     the training query counts, the lookup backward at the training ones,
-     the splat at the shapes of the training step's feature warps, the
-     pooled lookup backward at the probes' query counts, the streaming
-     probe (f32, both variants) at the stream probe's;
+     the training query counts (bit-exact in f32) and at one count that is
+     no multiple of its block's eight queries, the lookup backward at the
+     training ones, the splat at the shapes of the training step's feature
+     warps on noisy, smooth, wild and collapsing flows (its bins equal to
+     `splat_bins_plain`'s as sets), the pooled lookup backward at the
+     probes' query counts, the streaming probe (f32, both variants) at the
+     stream probe's;
   2. the frame step on the card against the port's CPU path, at a small
      config, with TF32 off, with and without `prior_only`; and under the
      bf16 policy (every module's output dtype equal on both, the frames
@@ -38,11 +41,14 @@ and runs these phases; any failure exits non-zero:
      synthetic frames from a seed, warm-up and timed `Trainer.step`s (ms per
      step, samples/s, peak memory), with the launch counts of this run alone
      checked against the expected 6 lookups, 6 lookup backwards and 17
-     splats a step;
+     splats a step (and 22 launches of the splat's two binning kernels);
   6. a learning check: 20 steps on one fixed batch at the small config;
   7. each kernel timed with CUDA events at its main path's largest shape,
      beside its plain version, a library yardstick and its bound (the larger
-     of bytes over the memory rate and operations over the f32 rate);
+     of bytes over the memory rate and operations over the f32 rate); the
+     splat at all six shapes and the lookup at all eight query counts, with
+     the sums of launches x ms against launches x bound, training per step
+     and serving per frame (`mrfa_tpu_torch/tools/kernel_times.py`);
   8. a torch.profiler breakdown of a few frames (f32 and bf16), of one
      `animate_chunk` call of each (its traced lookup kernels equal to the
      graph's counted launches) and of one training step;
@@ -50,7 +56,7 @@ and runs these phases; any failure exits non-zero:
      and `probe_stream`, at their default sizes), with the launch counts of
      the pooled backward and the streaming kernels read from them alone.
 
-Stdout ends with a `{"kernels": [...]}` line, the card's name and power limit
+Stdout ends with a `{"kernels": [...], "sums": {...}}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
 TF32 is off throughout (cuDNN and matmul): the port runs at f32.
 """
@@ -65,8 +71,6 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (same sheet)
 FRAME_SIZE = 256
 WARMUP_FRAMES = 3
 TIMED_FRAMES = 20  # back-to-back throughput frames
@@ -75,16 +79,14 @@ MAP_SIZE = 64  # level-0 maps are (size/4)^2
 LOOKUP_BQS = (64, 256, 1024, 4096)  # the six serving iterations' query counts, B=1
 TRAIN_BATCH = 10  # per card: vox1.yaml's batch_size 80 is the global batch of 8 GPUs
 TRAIN_LOOKUP_BQS = (640, 2560, 10240, 40960)  # the same, B=10
-# (resolution, channels) of the generator pyramid levels the training step
-# warps: each level's context, flow_w and coarse warps take the splat (the
-# finest level has no coarse warp)
-SPLAT_SHAPES = ((8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64))
 TRAIN_WARMUP_STEPS = 2
 TRAIN_TIMED_STEPS = 10
 LEARN_STEPS = 20
 # splats: the context and flow_w warps of all 6 pyramid levels and the coarse
-# warps of the 5 levels the decode reads
-PER_STEP = {"corr_lookup": 6, "corr_lookup_bwd": 6, "splat": 17}
+# warps of the 5 levels the decode reads (kernel_times.SPLAT_SHAPES); the 11
+# splats onto images of more than ops.splat.DIRECT_PIXELS pixels (32 px and
+# up) bin their samples with two kernels first
+PER_STEP = {"corr_lookup": 6, "corr_lookup_bwd": 6, "splat": 17, "splat_bins": 22}
 PROBE_BQS = (256, 1024, 4096, 16384)  # the lookup probe's default query counts
 STREAM_BQ = 4096  # the stream probe's
 STREAM_QB = 16  # queries per block of the TPU probe's streaming
@@ -135,49 +137,6 @@ def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
 
-def lookup_inputs(bq: int, dtype, device, seed: int):
-    """Level maps (level 1 = 2x2 mean of level 0), made on the card from a
-    seed, and coords around a grid of centres, with exact integer centres and
-    partly and fully out-of-bounds windows mixed in."""
-    import torch
-    import torch.nn.functional as F
-
-    gen = torch.Generator(device=device).manual_seed(seed)
-    c0 = torch.randn(bq, MAP_SIZE, MAP_SIZE, generator=gen, device=device)
-    c1 = F.avg_pool2d(c0[:, None], 2)[:, 0]
-    side = int(np.ceil(np.sqrt(bq)))
-    idx = torch.arange(bq, device=device)
-    grid = torch.stack([idx % side, idx // side], -1).float() * (MAP_SIZE / side)
-    coords = grid + 2.0 * torch.randn(bq, 2, generator=gen, device=device)
-    n = bq // 8
-    coords[:n] = torch.round(coords[:n])  # integer centres
-    coords[n:2 * n] = torch.rand(n, 2, generator=gen, device=device) * (MAP_SIZE + 24) - 12
-    coords[2 * n:2 * n + 4] = torch.tensor(
-        [[-40.0, 5.0], [MAP_SIZE + 30.0, 20.0], [10.0, -50.0], [-9.0, -9.0]], device=device)
-    return c0.to(dtype).contiguous(), c1.to(dtype).contiguous(), coords.contiguous()
-
-
-def splat_inputs(res: int, c: int, dtype, device, seed: int):
-    """The arguments a feature warp's backward hands the splat at this
-    pyramid level: a (B, res^2, C) gradient and the corners and pair weights
-    of coordinates around the identity grid (a flow of a few pixels, some
-    samples off the image), as `ops.sampler` computes them."""
-    import torch
-
-    from mrfa_tpu_torch.ops.sampler import _tap_weights
-
-    gen = torch.Generator(device=device).manual_seed(seed)
-    n = res * res
-    g = torch.randn(TRAIN_BATCH, n, c, generator=gen, device=device).to(dtype)
-    idx = torch.arange(n, device=device)
-    ix = (idx % res).float() + 2.0 * torch.randn(TRAIN_BATCH, n, generator=gen, device=device)
-    iy = (idx // res).float() + 2.0 * torch.randn(TRAIN_BATCH, n, generator=gen, device=device)
-    x0, y0, wx, wy, vx0, vx1, vy0, vy1 = _tap_weights(ix, iy, res, res, True)
-    args = (g, y0.contiguous(), ((1.0 - wy) * vy0).contiguous(), (wy * vy1).contiguous(),
-            x0.contiguous(), ((1.0 - wx) * vx0).contiguous(), (wx * vx1).contiguous(), res, res)
-    return args, ix, iy
-
-
 def bf16_ulp(x):
     """One bf16 ulp at |x| (8 significant bits), elementwise, in f32."""
     import torch
@@ -214,23 +173,34 @@ def phase_kernels(k, device):
         corr_lookup_plain,
         corr_lookup_pooled_bwd_plain,
     )
-    from mrfa_tpu_torch.ops.splat import splat_plain
+    from mrfa_tpu_torch.ops.splat import splat_bins_plain, splat_plain
     from mrfa_tpu_torch.ops.stream_probe import stream_probe_plain
+    from mrfa_tpu_torch.tools.kernel_times import (
+        FLOWS,
+        SPLAT_SHAPES,
+        TRAIN_BATCH,
+        lookup_inputs,
+        splat_inputs,
+    )
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
         worst = {"corr_lookup": 0.0, "corr_lookup_bwd": 0.0, "splat": 0.0}
-        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS):
+        # the main paths' query counts, and one that is no multiple of the
+        # kernel's eight queries a block
+        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS + (4099,)):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + i)
             got = k["corr_lookup"](c0, c1, coords)
             want = corr_lookup_plain(c0, c1, coords)
             torch.cuda.synchronize()
             check(got.shape == (bq, 98) and got.dtype == dtype, f"lookup shape/dtype {got.shape}")
             err, tol = close(got, want, dtype, f"corr_lookup {name} bq={bq}")
-            exact = float((got.float() == want.float()).float().mean())
+            exact = int((got.float() != want.float()).sum())
             print(f"phase1 corr_lookup {name} bq={bq}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                  f"exact_share={exact:.6f}")
+                  f"values not bit-equal: {exact} of {got.numel()}")
+            check(torch.equal(got, want) or dtype == torch.bfloat16,
+                  f"corr_lookup f32 bq={bq} not bit-exact")
             worst["corr_lookup"] = max(worst["corr_lookup"], err)
             if bq not in TRAIN_LOOKUP_BQS:
                 continue
@@ -255,20 +225,33 @@ def phase_kernels(k, device):
             check(not got[0][far].any() and not got[2][far].any(),
                   "far-out centres must give zero map and coordinate gradients")
         for j, (res, c) in enumerate(SPLAT_SHAPES):
-            args, _, _ = splat_inputs(res, c, dtype, device, seed=SEED + 100 + j)
-            got = k["splat"](*args)
-            want = splat_plain(*args)
-            torch.cuda.synchronize()
-            check(got.shape == (TRAIN_BATCH, res, res, c) and got.dtype == torch.float32,
-                  f"splat shape/dtype {got.shape}")
-            # f32 atomics sum in a run-dependent order: the JAX package's own
-            # hardware gate (bench.py), max |kernel - plain| / max |plain|
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
-            print(f"phase1 splat {name} B={TRAIN_BATCH} n={res * res} c={c} h=w={res}: "
-                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol rel 1e-4)")
-            check(rel <= 1e-4, f"splat {name} res={res}: rel err {rel}")
-            worst["splat"] = max(worst["splat"], err)
+            for flow in FLOWS:
+                args, _, _ = splat_inputs(res, c, dtype, device, seed=SEED + 100 + j, flow=flow)
+                got = k["splat"](*args)
+                want = splat_plain(*args)
+                torch.cuda.synchronize()
+                check(got.shape == (TRAIN_BATCH, res, res, c) and got.dtype == torch.float32,
+                      f"splat shape/dtype {got.shape}")
+                # f32 sums in another order than index_add_: the JAX package's
+                # own hardware gate (bench.py), max |kernel - plain| / max |plain|
+                err = float((got - want).abs().max())
+                rel = err / float(want.abs().max())
+                # the bins as sets per tile: sort the kernel's within each bin
+                counts, members = k["splat"].bins(args[1], args[4], res, res)
+                want_counts, want_members = splat_bins_plain(args[1], args[4], res, res)
+                total = args[1].numel()
+                bin_ids = torch.repeat_interleave(
+                    torch.arange(counts.numel(), device=device), counts)
+                same_bins = bool(torch.equal(counts, want_counts)) and bool(torch.equal(
+                    (bin_ids * total + members).sort().values % total, want_members))
+                print(f"phase1 splat {name} {flow} B={TRAIN_BATCH} n={res * res} c={c} "
+                      f"h=w={res}: max_abs_err={err:.3e} rel={rel:.3e} (tol rel 1e-4); "
+                      f"{members.numel()} bin entries ({members.numel() / total:.3f} a sample, "
+                      f"largest bin {int(counts.max())}), equal to splat_bins_plain: {same_bins}")
+                check(rel <= 1e-4, f"splat {name} {flow} res={res}: rel err {rel}")
+                check(same_bins, f"splat bins {flow} res={res} differ from splat_bins_plain")
+                worst["splat"] = max(worst["splat"], err)
+                del args, got, want
         worst["corr_lookup_pooled_bwd"] = 0.0
         for i, bq in enumerate(PROBE_BQS):
             corr, _, coords = lookup_inputs(bq, dtype, device, seed=SEED + 200 + i)
@@ -454,10 +437,13 @@ def vox1_cfg():
 def reset(kernels):
     for k in kernels.values():
         k.launches = 0
+    kernels["splat"].bin_launches = 0
 
 
 def launch_counts(kernels) -> dict:
-    return {name: k.launches for name, k in kernels.items()}
+    """Launches by kernel; "splat_bins" counts the splat's binning kernels."""
+    return {**{name: k.launches for name, k in kernels.items()},
+            "splat_bins": kernels["splat"].bin_launches}
 
 
 def serving_clip():
@@ -841,7 +827,7 @@ def phase_train_full_width(kernels, card):
     losses += [trainer.step(b) for b in batches[TRAIN_WARMUP_STEPS:]]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     for name, per_step in PER_STEP.items():
         check(launches[name] == per_step * n_steps,
@@ -918,53 +904,12 @@ def phase_probes(kernels, device):
     return launches
 
 
-def _cuda_ms(fn, iters: int, flush) -> float:
-    """Mean device time of `fn` over `iters` runs, each after an L2 flush."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        flush()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
-
-
-def patch_bytes(coords, itemsize: int) -> int:
-    """Bytes of the map values inside each query's two 8x8 patches (read once)."""
-    import torch
-
-    total = 0
-    for level in (0, 1):
-        size = MAP_SIZE >> level
-        lo = torch.floor(coords.double() * (0.5 ** level)) - 3  # (BQ, 2) patch start
-        inside = ((lo + 8).clamp(max=size) - lo.clamp(min=0)).clamp(min=0)
-        total += int((inside[:, 0] * inside[:, 1]).sum()) * itemsize
-    return total
-
-
-def lookup_bytes(bq: int, coords, itemsize: int) -> int:
-    """Bytes the lookup must move for these coords: the patch values read
-    once, the coords read, the output written."""
-    return patch_bytes(coords, itemsize) + bq * 2 * 4 + bq * 98 * itemsize
-
-
-def lookup_flops(bq: int) -> int:
-    """f32 operations of the lookup: per output 4 weight products, 4 tap
-    products and 3 sums; per query and level the fractions and their
-    complements (4), and the level-1 halving of the centre (2)."""
-    return bq * (98 * 11 + 2 * 4 + 2)
-
-
 def lookup_bwd_bytes(bq: int, coords, itemsize: int) -> int:
     """Bytes the lookup backward must move: the patch values and the coords
     read, g read (f32), both whole d_maps written (each query owns its
     maps) and d_coords written."""
+    from mrfa_tpu_torch.tools.kernel_times import patch_bytes
+
     maps = MAP_SIZE * MAP_SIZE + (MAP_SIZE // 2) ** 2
     return patch_bytes(coords, itemsize) + bq * 2 * 4 + bq * 98 * 4 + bq * maps * itemsize \
         + bq * 2 * 4
@@ -978,18 +923,6 @@ def lookup_bwd_flops(bq: int) -> int:
     per level the centre, fractions and weights (2 x 12); the level
     combination (4)."""
     return bq * (2 * 64 * 11 + 98 * 12 + 2 * 98 + 2 * 12 + 4)
-
-
-def splat_bytes(b: int, n: int, c: int, h: int, w: int, itemsize: int) -> int:
-    """Bytes the splat must move: g read once, the two corners (int32) and
-    four pair weights (f32) read once, d_img (f32) written once."""
-    return b * n * c * itemsize + b * n * 6 * 4 + b * h * w * c * 4
-
-
-def splat_flops(b: int, n: int, c: int) -> int:
-    """f32 operations of the splat: per sample and channel two products
-    u = wx * g, four products wy * u and four accumulating sums."""
-    return b * n * c * 10
 
 
 def library_lookup(c0, c1, coords):
@@ -1012,17 +945,12 @@ def library_lookup(c0, c1, coords):
     return torch.cat(outs, 1)
 
 
-def bound(nbytes: int, flops: int) -> dict:
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    return {"bytes": nbytes, "bytes_ms": bytes_ms, "flops": flops, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def phase_timing(k, device):
     """Phase 7: kernel, plain and library times at each kernel's largest
-    main-path shape (the lookup also at the serving BQ=4096)."""
+    main-path shape (the lookup also at the serving BQ=4096); then the splat
+    at all six shapes (noisy and smooth flows) and the lookup at all eight
+    BQs, and their per-path sums of launches x ms against launches x bound.
+    Returns (rows by kernel, the sums)."""
     import torch
     import torch.nn.functional as F
 
@@ -1033,10 +961,24 @@ def phase_timing(k, device):
     )
     from mrfa_tpu_torch.ops.splat import splat_plain
     from mrfa_tpu_torch.ops.stream_probe import stream_probe_plain
+    from mrfa_tpu_torch.tools.kernel_times import (
+        SPLAT_SHAPES,
+        TRAIN_BATCH,
+        bound,
+        cuda_ms,
+        lookup_bytes,
+        lookup_flops,
+        lookup_inputs,
+        make_flush,
+        path_sums,
+        splat_bytes,
+        splat_flops,
+        splat_inputs,
+        time_shapes,
+    )
     from mrfa_tpu_torch.tools.probe_lookup import pooled_bwd_bytes, pooled_bwd_flops
 
-    flush_buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
-    flush = lambda: flush_buf.zero_()  # noqa: E731  (256 MB > the 50 MB L2)
+    flush = make_flush(device)
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
@@ -1046,9 +988,9 @@ def phase_timing(k, device):
                              - corr_lookup_plain(c0, c1, coords).float()).abs().max())
             row = {
                 "shape": f"bq={bq}",
-                "ms": _cuda_ms(lambda: k["corr_lookup"](c0, c1, coords), 50, flush),
-                "plain_ms": _cuda_ms(lambda: corr_lookup_plain(c0, c1, coords), 10, flush),
-                "library_ms": _cuda_ms(lambda: library_lookup(c0, c1, coords), 10, flush),
+                "ms": cuda_ms(lambda: k["corr_lookup"](c0, c1, coords), 50, flush),
+                "plain_ms": cuda_ms(lambda: corr_lookup_plain(c0, c1, coords), 10, flush),
+                "library_ms": cuda_ms(lambda: library_lookup(c0, c1, coords), 10, flush),
                 "library_max_abs_err": lib_err,
                 **bound(lookup_bytes(bq, coords, c0.element_size()), lookup_flops(bq)),
             }
@@ -1060,11 +1002,11 @@ def phase_timing(k, device):
         lib_out = library_lookup(*leaves)
         row = {
             "shape": f"bq={bq}",
-            "ms": _cuda_ms(lambda: k["corr_lookup_bwd"](c0, c1, coords, g), 20, flush),
-            "plain_ms": _cuda_ms(lambda: corr_lookup_bwd_plain(c0, c1, coords, g), 5, flush),
+            "ms": cuda_ms(lambda: k["corr_lookup_bwd"](c0, c1, coords, g), 20, flush),
+            "plain_ms": cuda_ms(lambda: corr_lookup_bwd_plain(c0, c1, coords, g), 5, flush),
             # autograd of the two-grid_sample yardstick, in f32 (grid_sample
             # wants its grid in the map dtype, which bf16 cannot carry)
-            "library_ms": _cuda_ms(lambda: torch.autograd.grad(
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, g.float(), retain_graph=True), 5, flush),
             **bound(lookup_bwd_bytes(bq, coords, c0.element_size()), lookup_bwd_flops(bq)),
         }
@@ -1084,10 +1026,10 @@ def phase_timing(k, device):
         n = res * res
         row = {
             "shape": f"B={TRAIN_BATCH} n={n} c={c} h=w={res}",
-            "ms": _cuda_ms(lambda: k["splat"](*args), 20, flush),
-            "plain_ms": _cuda_ms(lambda: splat_plain(*args), 5, flush),
+            "ms": cuda_ms(lambda: k["splat"](*args), 20, flush),
+            "plain_ms": cuda_ms(lambda: splat_plain(*args), 5, flush),
             # grid_sampler_2d_backward's input gradient, f32 (yardstick only)
-            "library_ms": _cuda_ms(lib, 10, flush), "library_max_abs_err": lib_err,
+            "library_ms": cuda_ms(lib, 10, flush), "library_max_abs_err": lib_err,
             **bound(splat_bytes(TRAIN_BATCH, n, c, res, res, args[0].element_size()),
                     splat_flops(TRAIN_BATCH, n, c)),
         }
@@ -1107,10 +1049,10 @@ def phase_timing(k, device):
         lib_err = float((lib_grads[0] - plain[0].float()).abs().max())
         row = {
             "shape": f"bq={bq} {MAP_SIZE}x{MAP_SIZE}",
-            "ms": _cuda_ms(lambda: k["corr_lookup_pooled_bwd"](corr, coords, g), 20, flush),
-            "plain_ms": _cuda_ms(lambda: corr_lookup_pooled_bwd_plain(corr, coords, g), 5, flush),
+            "ms": cuda_ms(lambda: k["corr_lookup_pooled_bwd"](corr, coords, g), 20, flush),
+            "plain_ms": cuda_ms(lambda: corr_lookup_pooled_bwd_plain(corr, coords, g), 5, flush),
             # autograd of avg_pool2d + two grid_sample, f32 (yardstick only)
-            "library_ms": _cuda_ms(lambda: torch.autograd.grad(
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, g, retain_graph=True), 5, flush),
             "library_max_abs_err_dcorr": lib_err,
             **bound(pooled_bwd_bytes(coords, MAP_SIZE, MAP_SIZE, corr.element_size()),
@@ -1128,17 +1070,25 @@ def phase_timing(k, device):
     check(torch.equal(lib(), stream_probe_plain(l0, l1, STREAM_BQ, STREAM_QB)), "slice copy")
     row = {
         "shape": f"bq={STREAM_BQ} {MAP_SIZE}x{MAP_SIZE} qb={STREAM_QB}",
-        "ms": _cuda_ms(lambda: k["stream_probe"](l0, l1, STREAM_BQ, STREAM_QB), 20, flush),
-        "plain_ms": _cuda_ms(lambda: stream_probe_plain(l0, l1, STREAM_BQ, STREAM_QB), 10, flush),
+        "ms": cuda_ms(lambda: k["stream_probe"](l0, l1, STREAM_BQ, STREAM_QB), 20, flush),
+        "plain_ms": cuda_ms(lambda: stream_probe_plain(l0, l1, STREAM_BQ, STREAM_QB), 10, flush),
         # one torch.stack of the two strided views (yardstick only); it reads
         # only the kept corners, where the probe reads every byte
-        "library_ms": _cuda_ms(lib, 10, flush),
+        "library_ms": cuda_ms(lib, 10, flush),
         # the probe's function is to read every byte of both levels
         **bound((l0.numel() + l1.numel()) * 4 + 2 * STREAM_BQ * 8 * 8 * 4, 0),
     }
     print(f"phase7 stream_probe float32 {row['shape']}: " + json.dumps(row))
     rows[("stream_probe", torch.float32)] = row
-    return rows
+    del flush
+    shape_rows = time_shapes(k["splat"], k["corr_lookup"], device, (torch.float32, torch.bfloat16))
+    for row in shape_rows:
+        print("phase7 shape " + json.dumps(row))
+    sums = path_sums(shape_rows)
+    for key, s in sums.items():
+        print(f"phase7 sum {key}: {s['launches']} launches, {s['ms']:.6f} ms against "
+              f"{s['bound_ms']:.6f} ms bound ({s['bound_ms'] / s['ms']:.3f} of it)")
+    return rows, sums
 
 
 def _profile(fn, n: int, label: str, trace_name: str, by_op: bool = False):
@@ -1172,16 +1122,26 @@ def _profile(fn, n: int, label: str, trace_name: str, by_op: bool = False):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"{label}   {t / n / 1e3:8.3f} ms {c // n:5d}x  {name[:100]}")
     for name, (t, c) in by_name.items():
-        if name.startswith(("void (anonymous namespace)::", "corr_lookup", "splat")) and (
-                "corr_lookup" in name or "splat" in name):
+        if name.startswith(("void (anonymous namespace)::", "(anonymous namespace)::",
+                            "corr_lookup", "splat")) and ("corr_lookup" in name or "splat" in name):
             print(f"{label}   port kernel {t / n / 1e3:8.3f} ms {c // n:5d}x  {name[:100]}")
     if by_op:
+        from mrfa_tpu_torch.tools.kernel_times import SPLAT_SHAPES, TRAIN_BATCH
+
         ops = [e for e in prof.key_averages(group_by_input_shape=True)
                if e.key.startswith("aten::")]
         self_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
         for e in sorted(ops, key=self_us, reverse=True)[:8]:
             print(f"{label}   op {self_us(e) / n / 1e3:8.3f} ms {e.count // n:5d}x  {e.key} "
                   f"{str(e.input_shapes)[:120]}")
+        # the copies of the warps' (B, C, N) cotangents into the splat's
+        # (B, N, C) layout (ops/sampler.py), by their source's shape
+        shapes = {str([TRAIN_BATCH, res * res, c]) for res, c in SPLAT_SHAPES}
+        moved = [e for e in ops if e.key == "aten::copy_" and e.input_shapes
+                 and str(e.input_shapes[1]) in shapes]
+        print(f"{label}   splat-layout copies {sum(map(self_us, moved)) / n / 1e3:8.3f} ms "
+              f"{sum(e.count for e in moved) // n:5d}x  aten::copy_ of (B, N, C) views "
+              f"at the splat shapes")
     return by_name
 
 
@@ -1267,7 +1227,7 @@ def main() -> int:
     stamp("phase 6")
     paths["probes"] = phase_probes(kernels, device)
     stamp("phase 9")
-    times = phase_timing(kernels, device)
+    times, sums = phase_timing(kernels, device)
     stamp("phase 7")
     phase_profile([("serving", animator, state), ("serving_bf16", bf16_animator, bf16_state)],
                   clip[2], trainer, batch)
@@ -1306,12 +1266,15 @@ def main() -> int:
             })
         if also:
             entry["also_replaces"] = also
+        if name == "splat":
+            entry["bin_launches_by_path"] = {path: c["splat_bins"] for path, c in paths.items()}
         if name == "corr_lookup":
             serve = times[("corr_lookup", f32, LOOKUP_BQS[-1])]
             entry["serving_bq4096"] = {k: serve[k] for k in
                                        ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         entries.append(entry)
-    print(json.dumps({"kernels": entries}))
+    # the splat and lookup forward summed over each path's shapes (phase 7)
+    print(json.dumps({"kernels": entries, "sums": sums}))
     if FAILED:
         print(f"chip_smoke: {len(FAILED)} gate(s) failed: " + "; ".join(FAILED), file=sys.stderr)
         return 1

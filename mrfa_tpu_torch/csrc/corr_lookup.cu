@@ -1,28 +1,33 @@
-// Two-level 7x7 correlation window lookup for the refinement loop (serving).
+// Two-level 7x7 correlation window lookup of the refinement loop.
 //
-// Replaces the TPU kernel mrfa_tpu/ops/pallas_kernels.py::
-// _corr_lookup_padded_kernel (with _level_sample_padded), reached through
-// corr_block_lookup_pallas_padded. Semantics, per query q with centre
-// (cx, cy) in level-0 pixels:
+// Replaces the TPU kernels mrfa_tpu/ops/pallas_kernels.py::
+// _corr_lookup_padded_kernel (serving, with _level_sample_padded; reached
+// through corr_block_lookup_pallas_padded) and ::_corr_lookup_kernel (the
+// training forward, with _level_sample_t; reached through
+// corr_block_lookup_pallas_pret): the port's unpadded y-major maps are the
+// latter's input with x and y swapped, so one kernel serves both. Semantics,
+// per query q with centre (cx, cy) in level-0 pixels:
 //   out[q, l*49 + i*7 + j] = bilinear sample of map_l[q] at
 //                            (cx/2^l + i - 3, cy/2^l + j - 3),
 // zeros outside the map; the x offset i runs along the FIRST window axis.
 // Maps are y-major: map_l[q][y][x], level 0 (h, w), level 1 (h/2, w/2),
 // f32 or bf16; the blend is f32 and the result is stored in the map dtype.
 //
-// What bounds it on an H100: bytes, not arithmetic. A query needs at most two
-// 8x8 integer patches (128 map values) and writes 98 values, for ~400 flops;
-// the patches sit at data-dependent addresses in a different map per query,
-// so the cost is the latency of scattered loads more than bandwidth.
+// What bounds it on an H100: bytes. A query reads at most two 8x8 integer
+// patches (128 map values) at data-dependent addresses in its own maps and
+// writes 98 values, for ~1100 flops. At BQ=40960 (training) the bytes take
+// 0.0102 ms at 3.35 TB/s; at BQ=4096 (serving) 0.0010 ms, where the launch
+// itself costs more.
 //
-// Design (first, simple version): one thread per output value. Each thread
-// makes four bounds-checked loads and blends them with the same four terms,
-// in the same order and with the same roundings (no FMA contraction), as the
-// plain PyTorch version in ops/corr_lookup.py, so the two agree bit for bit.
-// The 98 threads of a query are consecutive, so their overlapping patch loads
-// hit in L1 after the first miss and each patch row comes from DRAM about
-// once. Staging patches in shared memory or giving a warp whole queries is
-// later work.
+// Design: one warp per query, eight queries to a 256-thread block. The warp
+// stages both 8x8 patches into shared memory, zero-filled outside the map,
+// with one load per value (four patch rows of eight values per load
+// instruction, in the maps' dtype), and computes each level's fractions
+// once. Each lane then blends at most four outputs from shared memory, with
+// no bounds checks, and the 98 outputs of a query are stored as coalesced
+// runs. The blend keeps the four terms, their order and their roundings
+// (__fmul_rn / __fadd_rn, no FMA contraction) of the plain PyTorch version in
+// ops/corr_lookup.py, so the two agree bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,7 +40,9 @@ constexpr int kRadius = 3;
 constexpr int kWin = 2 * kRadius + 1;  // 7
 constexpr int kTaps = kWin * kWin;     // 49 per level
 constexpr int kOut = 2 * kTaps;        // 98 per query
-constexpr int kThreads = 256;
+constexpr int kPatch = kWin + 1;       // 8: the integer patch a window reads
+constexpr int kQueries = 8;            // queries (warps) per block
+constexpr int kThreads = 32 * kQueries;
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -46,63 +53,88 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// A level's window for one query: the clamped integer corner and the
+// fractions of the unclamped centre.
+struct Window {
+  int x0, y0;
+  float fx, fy, gx, gy;
+};
+
+__device__ __forceinline__ Window window(float cx, float cy, int h, int w) {
+  Window r;
+  const float x0f = floorf(cx);
+  const float y0f = floorf(cy);
+  r.fx = __fsub_rn(cx, x0f);
+  r.fy = __fsub_rn(cy, y0f);
+  r.gx = __fsub_rn(1.0f, r.fx);
+  r.gy = __fsub_rn(1.0f, r.fy);
+  // Clamp before the integer conversion: beyond this range every tap of the
+  // window is out of bounds either way, so the result does not change.
+  r.x0 = static_cast<int>(fminf(fmaxf(x0f, -(kRadius + 2.0f)), w + kRadius));
+  r.y0 = static_cast<int>(fminf(fmaxf(y0f, -(kRadius + 2.0f)), h + kRadius));
+  return r;
+}
+
+// The 8x8 patch [y][x] from (x0 - 3, y0 - 3) into shared memory, zeros
+// outside the map: lane l loads row l / 8 (and 4 + l / 8), column l % 8.
 template <typename T>
-__device__ __forceinline__ float tap(const T* map, int h, int w, int x, int y) {
-  return (x >= 0 && x < w && y >= 0 && y < h) ? load_f32(map + y * w + x) : 0.0f;
+__device__ __forceinline__ void stage(const T* __restrict__ map, int h, int w, const Window& win,
+                                      float* patch, int lane) {
+  const int col = lane & (kPatch - 1);
+  const int x = win.x0 - kRadius + col;
+  const bool x_in = x >= 0 && x < w;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = (lane >> 3) + 4 * half;
+    const int y = win.y0 - kRadius + row;
+    patch[row * kPatch + col] = (x_in && y >= 0 && y < h) ? load_f32(map + y * w + x) : 0.0f;
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 corr_lookup_kernel(const T* __restrict__ c0, const T* __restrict__ c1,
-                   const float* __restrict__ coords, T* __restrict__ out,
-                   int64_t bq, int h0, int w0) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= bq * kOut) return;
-  const int64_t q = idx / kOut;
-  const int c = static_cast<int>(idx - q * kOut);
-  const int level = c / kTaps;
-  const int t = c - level * kTaps;
-  const int i = t / kWin;  // x offset index
-  const int j = t - i * kWin;  // y offset index
+                   const float* __restrict__ coords, T* __restrict__ out, int64_t bq, int h0,
+                   int w0) {
+  __shared__ float patches[kQueries][2][kPatch * kPatch];
+  const int lane = threadIdx.x & 31;
+  const int wq = threadIdx.x >> 5;
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * kQueries + wq;
+  if (q >= bq) return;  // whole warps only: no block-wide barrier follows
 
-  const int h = h0 >> level;
-  const int w = w0 >> level;
-  const T* map = (level == 0 ? c0 : c1) + q * h * w;
-  float cx = __ldg(coords + 2 * q);
-  float cy = __ldg(coords + 2 * q + 1);
-  if (level == 1) {
-    cx = __fmul_rn(cx, 0.5f);
-    cy = __fmul_rn(cy, 0.5f);
+  const float cx = __ldg(coords + 2 * q);
+  const float cy = __ldg(coords + 2 * q + 1);
+  const int h1 = h0 >> 1;
+  const int w1 = w0 >> 1;
+  const Window win0 = window(cx, cy, h0, w0);
+  const Window win1 = window(__fmul_rn(cx, 0.5f), __fmul_rn(cy, 0.5f), h1, w1);
+  stage(c0 + q * h0 * w0, h0, w0, win0, patches[wq][0], lane);
+  stage(c1 + q * h1 * w1, h1, w1, win1, patches[wq][1], lane);
+  __syncwarp();
+
+  T* dst = out + q * kOut;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = lane + 32 * k;
+    if (c >= kOut) break;
+    const int level = c >= kTaps;
+    const int t = c - level * kTaps;
+    const int i = t / kWin;  // x offset index
+    const int j = t - i * kWin;  // y offset index
+    const Window& win = level ? win1 : win0;
+    const float* p = patches[wq][level] + j * kPatch + i;
+    float v = __fmul_rn(__fmul_rn(win.gx, win.gy), p[0]);
+    v = __fadd_rn(v, __fmul_rn(__fmul_rn(win.fx, win.gy), p[1]));
+    v = __fadd_rn(v, __fmul_rn(__fmul_rn(win.gx, win.fy), p[kPatch]));
+    v = __fadd_rn(v, __fmul_rn(__fmul_rn(win.fx, win.fy), p[kPatch + 1]));
+    store_out(dst + c, v);
   }
-  const float x0f = floorf(cx);
-  const float y0f = floorf(cy);
-  const float fx = __fsub_rn(cx, x0f);
-  const float fy = __fsub_rn(cy, y0f);
-  const float gx = __fsub_rn(1.0f, fx);
-  const float gy = __fsub_rn(1.0f, fy);
-  // Clamp before the integer conversion: beyond this range every tap of the
-  // window is out of bounds either way, so the result does not change.
-  const int x0 = static_cast<int>(fminf(fmaxf(x0f, -(kRadius + 2.0f)), w + kRadius));
-  const int y0 = static_cast<int>(fminf(fmaxf(y0f, -(kRadius + 2.0f)), h + kRadius));
-  const int x = x0 + i - kRadius;
-  const int y = y0 + j - kRadius;
-
-  const float p00 = tap(map, h, w, x, y);
-  const float p10 = tap(map, h, w, x + 1, y);
-  const float p01 = tap(map, h, w, x, y + 1);
-  const float p11 = tap(map, h, w, x + 1, y + 1);
-  float v = __fmul_rn(__fmul_rn(gx, gy), p00);
-  v = __fadd_rn(v, __fmul_rn(__fmul_rn(fx, gy), p10));
-  v = __fadd_rn(v, __fmul_rn(__fmul_rn(gx, fy), p01));
-  v = __fadd_rn(v, __fmul_rn(__fmul_rn(fx, fy), p11));
-  store_out(out + idx, v);
 }
 
 template <typename T>
 void launch(const void* c0, const void* c1, const void* coords, void* out,
             int64_t bq, int h0, int w0, cudaStream_t stream) {
-  const int64_t total = bq * kOut;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  const unsigned blocks = static_cast<unsigned>((bq + kQueries - 1) / kQueries);
   corr_lookup_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const float*>(coords), static_cast<T*>(out), bq, h0, w0);
