@@ -10,8 +10,9 @@ It builds every hand-written CUDA kernel of the port from the sources in
 and runs these phases; any failure exits non-zero:
 
   1. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, in f32 and bf16: the lookup forward at the serving and
-     the training query counts (bit-exact in f32) and at one count that is
+     paths' shapes, in f32 and bf16: the lookup forward at the serving, the
+     training and the reconstruction chunk's query counts (bit-exact in
+     f32) and at one count that is
      no multiple of its block's eight queries, the lookup backward at the
      training ones, the splat at the shapes of the training step's feature
      warps on noisy, smooth, wild and collapsing flows (its bins equal to
@@ -45,16 +46,31 @@ and runs these phases; any failure exits non-zero:
   6. a learning check: 20 steps on one fixed batch at the small config;
   7. each kernel timed with CUDA events at its main path's largest shape,
      beside its plain version, a library yardstick and its bound (the larger
-     of bytes over the memory rate and operations over the f32 rate); the
-     splat at all six shapes and the lookup at all eight query counts, with
-     the sums of launches x ms against launches x bound, training per step
-     and serving per frame (`mrfa_tpu_torch/tools/kernel_times.py`);
+     of bytes over the memory rate and operations over the f32 rate), the
+     lookup also at the serving BQ 4096 and the reconstruction BQ 32768;
+     the splat at all six shapes and the lookup at all twelve query counts,
+     with the sums of launches x ms against launches x bound, training per
+     step, serving per frame and reconstruction per chunk
+     (`mrfa_tpu_torch/tools/kernel_times.py`);
   8. a torch.profiler breakdown of a few frames (f32 and bf16), of one
      `animate_chunk` call of each (its traced lookup kernels equal to the
      graph's counted launches) and of one training step;
   9. the probes of the pooled lookup (`mrfa_tpu_torch.tools.probe_lookup`
      and `probe_stream`, at their default sizes), with the launch counts of
-     the pooled backward and the streaming kernels read from them alone.
+     the pooled backward and the streaming kernels read from them alone;
+ 10. the run entry point's paths at full width, each with its own launch
+     counts, on in-memory clips (smooth frames from the seed): `loop.train`
+     on config/celebvhq.yaml (background predictor on, batch 10, 2 epochs
+     of 3 steps, a checkpoint each; the loop's epoch lines, ms/step, peak
+     memory; the bg term finite, the predictor moved; the epoch-0
+     checkpoint restored bit for bit, and epoch 1 run again from it), the
+     `.pth` import of the trained model, `loop.train` on config/vox1.yaml
+     (TokenPose cut to 2 layers, 2 steps), one training step with the
+     predictor on the card against the CPU at 64 px (as phase 4),
+     `evals.reconstruction` (64 px against the CPU; then 2 clips of 12
+     frames at 256 px in chunks of 8: frames/s, phase clocks, finite
+     metrics) and `evals.animate` (8 frames, equal to
+     `Animator.make_animation`).
 
 Stdout ends with a `{"kernels": [...], "sums": {...}}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
@@ -64,9 +80,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +99,7 @@ MAP_SIZE = 64  # level-0 maps are (size/4)^2
 LOOKUP_BQS = (64, 256, 1024, 4096)  # the six serving iterations' query counts, B=1
 TRAIN_BATCH = 10  # per card: vox1.yaml's batch_size 80 is the global batch of 8 GPUs
 TRAIN_LOOKUP_BQS = (640, 2560, 10240, 40960)  # the same, B=10
+EVAL_LOOKUP_BQS = (512, 2048, 8192, 32768)  # a reconstruction chunk's, frame_batch 8
 TRAIN_WARMUP_STEPS = 2
 TRAIN_TIMED_STEPS = 10
 LEARN_STEPS = 20
@@ -189,7 +210,7 @@ def phase_kernels(k, device):
         worst = {"corr_lookup": 0.0, "corr_lookup_bwd": 0.0, "splat": 0.0}
         # the main paths' query counts, and one that is no multiple of the
         # kernel's eight queries a block
-        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS + (4099,)):
+        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS + EVAL_LOOKUP_BQS + (4099,)):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + i)
             got = k["corr_lookup"](c0, c1, coords)
             want = corr_lookup_plain(c0, c1, coords)
@@ -726,6 +747,11 @@ def _trainer_pair_step(cfg, seed, with_gpu=True):
 
     torch.manual_seed(seed)
     on_cpu = Trainer(cfg, device="cpu", generator=torch.Generator().manual_seed(seed + 1))
+    if hasattr(on_cpu.model, "bg_predictor"):
+        # off the identity init, so that the bg term is not zero at the first step
+        with torch.no_grad():
+            fc = on_cpu.model.bg_predictor.bg_encoder.fc.weight
+            fc.copy_(0.01 * torch.randn(fc.shape, generator=torch.Generator().manual_seed(seed)))
     on_gpu = None
     if with_gpu:
         weights = {k: v.clone() for k, v in on_cpu.model.state_dict().items()}
@@ -735,10 +761,12 @@ def _trainer_pair_step(cfg, seed, with_gpu=True):
     return on_cpu, on_gpu, batch
 
 
-def phase_train_gpu_vs_cpu():
+def phase_train_gpu_vs_cpu(use_bg: bool = False):
     """Phase 4: one training step on the card against the port's CPU path:
     loss terms (rtol 1e-4), the generated frames, every gradient (before
-    Adam, after clipping) and the BatchNorm running statistics.
+    Adam, after clipping) and the BatchNorm running statistics. With
+    `use_bg` (phase 10c), the same with the background predictor on: its
+    term among the losses, its gradients and statistics among the rest.
 
     The randomly initialized network in train mode is sensitive at f32: a
     1e-6 change of its input moves deep gradients by tens of percent (see
@@ -749,27 +777,32 @@ def phase_train_gpu_vs_cpu():
     import torch
 
     cfg = small_cfg(losses=True)
+    if use_bg:
+        cfg["train_params"]["bg_start"] = 0
+    label = "phase10c train bg" if use_bg else "phase4 train"
     on_cpu, on_gpu, batch = _trainer_pair_step(cfg, SEED + 20)
-    want = on_cpu.step(batch)
-    got = on_gpu.step(batch)
+    want = on_cpu.step(batch, use_bg=use_bg)
+    got = on_gpu.step(batch, use_bg=use_bg)
     floors = []
     for i in range(3):
         noisy, _, _ = _trainer_pair_step(cfg, SEED + 20, with_gpu=False)
         gen = torch.Generator().manual_seed(SEED + 30 + i)
         moved = {k: v + 1e-6 * torch.randn(v.shape, generator=gen) for k, v in batch.items()}
-        floors.append((noisy, noisy.step(moved)))
+        floors.append((noisy, noisy.step(moved, use_bg=use_bg)))
 
     def floor(fn):
         return 2 * max(fn(trainer, out) for trainer, out in floors)
 
-    for k in ("loss", "perceptual", "equivariance", "equivariance_jacobian"):
+    terms = ["loss", "perceptual", "equivariance", "equivariance_jacobian"] + ["bg"] * use_bg
+    check(sorted(got) == sorted(terms + ["gen"]), f"loss terms {sorted(got)}")
+    for k in terms:
         rel = abs(got[k] - want[k]) / abs(want[k])
-        print(f"phase4 train gpu-vs-cpu {k}: gpu={got[k]:.7f} cpu={want[k]:.7f} "
+        print(f"{label} gpu-vs-cpu {k}: gpu={got[k]:.7f} cpu={want[k]:.7f} "
               f"rel_err={rel:.3e} (tol 1e-4)")
         check(np.isfinite(got[k]) and rel <= 1e-4, f"train step loss {k} disagrees: {rel}")
     gen_err = float((got["gen"].cpu() - want["gen"]).abs().max())
     gen_tol = max(1e-4, floor(lambda t, o: float((o["gen"] - want["gen"]).abs().max())))
-    print(f"phase4 train gpu-vs-cpu generated: max_abs_err={gen_err:.3e} (tol {gen_tol:.3e})")
+    print(f"{label} gpu-vs-cpu generated: max_abs_err={gen_err:.3e} (tol {gen_tol:.3e})")
     check(gen_err <= gen_tol, "train step generated frames disagree")
     cpu_p = dict(on_cpu.model.named_parameters())
     floor_p = [dict(t.model.named_parameters()) for t, _ in floors]
@@ -786,7 +819,7 @@ def phase_train_gpu_vs_cpu():
         check(err <= tol, f"gradient of {name}: err {err:.3e} > tol {tol:.3e}")
         worst = max(worst, (err / tol, name))
         n_floor += err > 1e-3 * scale
-    print(f"phase4 train gpu-vs-cpu gradients: {n_grads} tensors, {n_floor} of them beyond "
+    print(f"{label} gpu-vs-cpu gradients: {n_grads} tensors, {n_floor} of them beyond "
           f"1e-3 of their max |g| and inside the input-1e-6 floor; worst err / tol = "
           f"{worst[0]:.3e} ({worst[1]})")
     cpu_state = on_cpu.model.state_dict()
@@ -798,7 +831,7 @@ def phase_train_gpu_vs_cpu():
             noise = 2 * max(float((fs[key] - cpu_state[key]).abs().max()) for fs in floor_state)
             check(err <= max(1e-5, noise), f"BatchNorm statistic {key}: err {err:.3e}")
             worst = max(worst, err)
-    print(f"phase4 train gpu-vs-cpu BatchNorm running statistics: max_abs_err={worst:.3e}")
+    print(f"{label} gpu-vs-cpu BatchNorm running statistics: max_abs_err={worst:.3e}")
 
 
 def phase_train_full_width(kernels, card):
@@ -904,6 +937,398 @@ def phase_probes(kernels, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the run entry point (loop, checkpoints, evals) at full width
+
+LOOP_STEPS = 3  # steps an epoch of the celebvhq run
+LOOP_CLIPS = 30  # training clips: 3 batches of 10
+EVAL_FRAME_BATCH = 8
+EVAL_CLIPS, EVAL_FRAMES = 2, 12  # two chunks a clip, the second padded
+ANIMATE_FRAMES = 8
+EPOCH_LINE = re.compile(r"^epoch (\d+): (\d+) steps in ([\d.]+)s \(([\d.]+) samples/s\)$")
+
+
+class ClipDataset:
+    """`FramesDataset`'s item contract over in-memory clips (the card
+    machine has no image decoder, and no dataset is in the repository):
+    a training item is two frames of a clip picked by `rng` (sorted), a test
+    item the whole clip (its first frame with `read_first_frame`)."""
+
+    def __init__(self, clips: np.ndarray, is_train: bool, seed: int = SEED):
+        self.clips = clips  # (N, T, H, W, 3) float32 in [0, 1]
+        self.videos = [f"clip{i:03d}" for i in range(len(clips))]
+        self.is_train = is_train
+        self.rng = np.random.RandomState(seed)
+        self.pairs_list = None
+        self.read_first_frame = False
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, idx: int) -> dict:
+        clip = self.clips[idx]
+        out = {"name": self.videos[idx]}
+        if self.is_train:
+            i, j = np.sort(self.rng.choice(len(clip), replace=True, size=2))
+            out.update(source=clip[i], driving=clip[j])
+        else:
+            out["video"] = clip[:1] if self.read_first_frame else clip
+        return out
+
+
+def smooth_clips(n: int, t: int, size: int, seed: int) -> np.ndarray:
+    """(n, t, size, size, 3) clips of smooth frames made from a seed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return smooth_frames(n * t, size, gen, "cpu").numpy().reshape(n, t, size, size, 3)
+
+
+class Tee:
+    """stdout that is also kept, to read the loop's own epoch lines."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def epochs(self):
+        found = [EPOCH_LINE.match(line) for line in "".join(self.lines).splitlines()]
+        return [tuple(float(x) for x in m.groups()) for m in found if m]
+
+
+def run_config(name: str) -> dict:
+    from mrfa_tpu_torch.config import load_config
+
+    return load_config(str(Path(__file__).resolve().parent / "config" / f"{name}.yaml"))
+
+
+def _run_loop(kernels, cfg, dataset, log_dir, checkpoint=None, max_steps=LOOP_STEPS):
+    """`loop.train` with the counts of this run alone: (trainer, launches,
+    epoch lines (epoch, steps, seconds, samples/s), peak bytes, seconds)."""
+    import torch
+
+    from mrfa_tpu_torch.train.loop import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        trainer = train(cfg, checkpoint, str(log_dir), dataset, seed=SEED,
+                        max_steps_per_epoch=max_steps, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (trainer, launch_counts(kernels), tee.epochs(), torch.cuda.max_memory_allocated(),
+            seconds)
+
+
+def _check_launches(launches, steps: int, label: str) -> None:
+    for name, per_step in PER_STEP.items():
+        check(launches[name] == per_step * steps,
+              f"{label}: {name} launches {launches[name]} != {per_step} x {steps} steps")
+
+
+def _state_equal(got, want, path="") -> int:
+    """Bit-equality of two saved states (tensors on any device); returns the
+    number of tensors compared."""
+    import torch
+
+    check(type(got) is type(want), f"checkpoint {path}: {type(got)} vs {type(want)}")
+    if isinstance(want, dict):
+        check(list(got) == list(want), f"checkpoint {path}: keys differ")
+        return sum(_state_equal(got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"checkpoint {path}: lengths differ")
+        return sum(_state_equal(g, w, f"{path}/{i}") for i, (g, w) in enumerate(zip(got, want)))
+    if torch.is_tensor(want):
+        check(got.dtype == want.dtype and torch.equal(got.cpu(), want.cpu()),
+              f"checkpoint {path}: tensors differ")
+        return 1
+    check(got == want, f"checkpoint {path}: {got} != {want}")
+    return 0
+
+
+def phase_loop_celebvhq(kernels, card, work: Path):
+    """Phase 10a: `loop.train` on config/celebvhq.yaml (background predictor
+    on from epoch 0) at full width, batch 10, 2 epochs of 3 steps, a
+    checkpoint each; the epoch-0 checkpoint restored (every saved tensor
+    bit-equal) and epoch 1 run again from it. Returns (the trained trainer,
+    its config, the launch counts of each run)."""
+    import shutil
+
+    import torch
+
+    from mrfa_tpu_torch.config import model_config
+    from mrfa_tpu_torch.train.trainer import Trainer
+    from mrfa_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cfg = run_config("celebvhq")
+    cfg["train_params"].update(batch_size=TRAIN_BATCH, num_epochs=2, checkpoint_freq=1,
+                               num_repeats=1, num_workers=1)
+    clips = smooth_clips(LOOP_CLIPS, 2, FRAME_SIZE, SEED + 50)
+    trainer, launches, epochs, peak, seconds = _run_loop(
+        kernels, cfg, ClipDataset(clips, True), work / "celebvhq")
+    steps = 2 * LOOP_STEPS
+    _check_launches(launches, steps, "loop celebvhq")
+    check([e[:2] for e in epochs] == [(0, LOOP_STEPS), (1, LOOP_STEPS)], f"epoch lines {epochs}")
+    lines = (work / "celebvhq" / "log.txt").read_text().splitlines()
+    terms = [dict(t.split(" - ") for t in line.split(") ", 1)[1].split("; ")) for line in lines]
+    check(len(terms) == 2 and all("bg" in t for t in terms), f"log lines {lines}")
+    check(all(np.isfinite(float(v)) for t in terms for v in t.values()), f"log lines {lines}")
+    fc = trainer.model.bg_predictor.bg_encoder.fc
+    moved = float(fc.weight.detach().abs().max())
+    check(moved > 0, "the bg predictor did not move from its identity init")
+    ckpt = work / "celebvhq" / "ckpt"
+    check(sorted(p.name for p in ckpt.iterdir()) == ["0", "1"], "checkpoints 0 and 1")
+    vis = sorted(p.name for p in (work / "celebvhq" / "train-vis").iterdir())
+    check(vis == ["00000000-rec.png", "00000001-rec.png"], f"train-vis {vis}")
+    ms_per_step = epochs[1][2] / epochs[1][1] * 1e3  # the warm epoch
+
+    # checkpoint save and restore times, and the restore bit-equal
+    t0 = time.perf_counter()
+    saved, _ = restore_checkpoint(str(ckpt), 0)
+    restore_s = time.perf_counter() - t0
+    fresh = Trainer(model_config(cfg), steps_per_epoch=LOOP_STEPS)
+    t0 = time.perf_counter()
+    fresh.load_state_dict(saved["trainer"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_tensors = _state_equal(fresh.state_dict(), saved["trainer"])
+    check(fresh.steps == LOOP_STEPS and saved["epoch"] == 0, "the epoch-0 checkpoint's step")
+    t0 = time.perf_counter()
+    save_checkpoint(str(work / "save_timing"), {"trainer": fresh.state_dict(), "epoch": 0}, 0)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = (ckpt / "0" / "state.pt").stat().st_size
+    del fresh, saved
+    shutil.rmtree(work / "save_timing")
+
+    # resume from the epoch-0 checkpoint alone: epoch 1 runs again
+    shutil.copytree(ckpt / "0", work / "resume" / "ckpt" / "0")
+    resumed, resume_launches, resume_epochs, _, _ = _run_loop(
+        kernels, cfg, ClipDataset(clips, True), work / "resume", str(work / "resume" / "ckpt"))
+    _check_launches(resume_launches, LOOP_STEPS, "loop celebvhq resumed")
+    check([e[:2] for e in resume_epochs] == [(1, LOOP_STEPS)], f"resumed epochs {resume_epochs}")
+    check(resumed.steps == 2 * LOOP_STEPS, f"resumed step count {resumed.steps}")
+    straight = dict(trainer.model.named_parameters())
+    resume_diff = max(float((p - straight[n]).abs().max())
+                      for n, p in resumed.model.named_parameters())
+    del resumed
+    result = {
+        "phase": "loop_celebvhq", "config": "config/celebvhq.yaml mtia, bg from epoch 0",
+        "size": FRAME_SIZE, "batch": TRAIN_BATCH, "epochs": 2, "steps_per_epoch": LOOP_STEPS,
+        "card": card, "tf32": False, "loop_seconds": seconds, "epoch_lines": epochs,
+        "ms_per_step_epoch1": ms_per_step, "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "loss_terms": terms, "bg_fc_weight_max_abs": moved,
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s, "trainer_load_s": load_s,
+        "restored_tensors_bit_equal": n_tensors, "resumed_launches": resume_launches,
+        "resumed_epoch_lines": resume_epochs,
+        "resumed_vs_straight_params_max_abs": resume_diff,
+    }
+    print("phase10a " + json.dumps(result))
+    return trainer, cfg, {"loop_celebvhq": launches, "loop_celebvhq_resumed": resume_launches}
+
+
+def phase_loop_vox1(kernels, card, work: Path):
+    """Phase 10b: `loop.train` on config/vox1.yaml (no background
+    predictor), its TokenPose cut to 2 layers, one epoch of 2 steps."""
+    cfg = run_config("vox1")
+    cfg["mtia_kp_detector"]["MODEL"]["TRANSFORMER_DEPTH"] = 2
+    cfg["train_params"].update(batch_size=TRAIN_BATCH, num_epochs=1, num_repeats=1,
+                               num_workers=1)
+    clips = smooth_clips(2 * TRAIN_BATCH, 2, FRAME_SIZE, SEED + 51)
+    trainer, launches, epochs, peak, seconds = _run_loop(
+        kernels, cfg, ClipDataset(clips, True), work / "vox1", max_steps=2)
+    _check_launches(launches, 2, "loop vox1")
+    check(not hasattr(trainer.model, "bg_predictor") and trainer.optimizer_bg is None,
+          "vox1 builds no bg predictor")
+    line = (work / "vox1" / "log.txt").read_text().splitlines()
+    check(len(line) == 1 and "bg" not in line[0], f"log line {line}")
+    check(sorted(p.name for p in (work / "vox1" / "ckpt").iterdir()) == ["0"], "checkpoint 0")
+    result = {"phase": "loop_vox1", "config": "config/vox1.yaml mtia, TokenPose depth 2",
+              "size": FRAME_SIZE, "batch": TRAIN_BATCH, "steps": 2, "card": card,
+              "loop_seconds": seconds, "epoch_lines": epochs, "peak_memory_bytes": peak,
+              "launches": launches, "log_line": line[0]}
+    print("phase10b " + json.dumps(result))
+    return launches
+
+
+def _recon_config(cfg: dict) -> dict:
+    cfg = dict(cfg)
+    cfg["reconstruction_params"] = {"num_videos": None, "format": ".mp4",
+                                    "frame_batch": EVAL_FRAME_BATCH}
+    cfg["visualizer_params"] = {"draw_border": True, "colormap": "gist_rainbow"}
+    return cfg
+
+
+def phase_reconstruction_gpu_vs_cpu(work: Path):
+    """Phase 10d (small): `evals.reconstruction` at 64 px on the card and on
+    the CPU from the same weights: the generated frames (tol 1e-4, as phase
+    2) and the metrics (rtol 1e-4)."""
+    import torch
+
+    from mrfa_tpu_torch import evals
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    cfg = _recon_config(small_cfg())
+    torch.manual_seed(SEED)
+    cpu_model = MRFA(cfg, device="cpu")
+    gpu_model = MRFA(cfg)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    dataset = ClipDataset(smooth_clips(1, EVAL_FRAMES, 64, SEED + 52), False)
+    frames, results = {}, {}
+    for name, model, device in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, "cuda")):
+        hook = model.register_forward_hook(
+            lambda m, a, out, name=name: frames.setdefault(name, []).append(out[0].cpu()))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the LPIPS fallback's warning
+            results[name] = evals.reconstruction(cfg, model, str(work / f"recon64_{name}"),
+                                                 dataset, device=device)
+        hook.remove()
+    err = float((torch.cat(frames["gpu"]) - torch.cat(frames["cpu"])).abs().max())
+    rel = {k: abs(results["gpu"][k] - results["cpu"][k]) / abs(results["cpu"][k])
+           for k in ("l1", "lpips", "psnr")}
+    print(f"phase10d reconstruction gpu-vs-cpu 64 px: frames max_abs_err={err:.3e} (tol 1e-4); "
+          f"metrics rel_err " + json.dumps(rel) + " (tol 1e-4)")
+    check(err <= 1e-4, f"reconstruction frames on the card differ from the CPU's: {err}")
+    check(all(r <= 1e-4 for r in rel.values()), f"reconstruction metrics differ: {rel}")
+
+
+def phase_reconstruction(kernels, card, work: Path):
+    """Phase 10d: `evals.reconstruction` of config/vox1.yaml's model at full
+    width (random weights from the seed), 2 clips of 12 frames in chunks of
+    8, visualizations on: frames/s, the phase clocks, the metrics finite."""
+    import torch
+
+    from mrfa_tpu_torch import evals
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    cfg = _recon_config(run_config("vox1"))
+    torch.manual_seed(SEED)
+    model = MRFA(cfg)
+    dataset = ClipDataset(smooth_clips(EVAL_CLIPS, EVAL_FRAMES, FRAME_SIZE, SEED + 53), False)
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the LPIPS fallback's warning
+        results = evals.reconstruction(cfg, model, str(work / "recon"), dataset)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    chunks = EVAL_CLIPS * -(-EVAL_FRAMES // EVAL_FRAME_BATCH)
+    check(launches["corr_lookup"] == 6 * chunks, f"reconstruction lookups {launches}")
+    check(all(v == 0 for k, v in launches.items() if k != "corr_lookup"),
+          f"reconstruction launched another kernel than the lookup: {launches}")
+    check(results["frames"] == EVAL_CLIPS * EVAL_FRAMES, f"frames {results['frames']}")
+    check(all(np.isfinite(results[k]) for k in ("l1", "lpips", "psnr")), f"metrics {results}")
+    out_dir = work / "recon" / "reconstruction"
+    written = sorted(str(p.relative_to(out_dir)) for p in out_dir.glob("*/*"))[:6]
+    result = {"phase": "reconstruction", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+              "frame_batch": EVAL_FRAME_BATCH, "clips": EVAL_CLIPS, "chunks": chunks,
+              "card": card, "seconds": seconds, "frames_per_s": results["frames"] / seconds,
+              # the chunks after the first (which pays the cuDNN and kernel set-up)
+              "device_ms_per_chunk": results["phase_wall"]["device"] / (chunks - 1) * 1e3,
+              "results": results, "launches": launches, "lookups_per_chunk": 6,
+              "written": written}
+    print("phase10d " + json.dumps(result))
+    return model, launches
+
+
+def phase_animate(kernels, card, model, work: Path):
+    """Phase 10e: `evals.animate` of one pair of 8 frames at full width; its
+    frames bit-equal to `Animator.make_animation` on the same pair."""
+    from mrfa_tpu_torch import evals
+    from mrfa_tpu_torch.animate import Animator
+    from mrfa_tpu_torch.data.dataset import PairedDataset
+
+    cfg = run_config("vox1")
+    cfg["animate_params"]["num_pairs"] = 1
+    dataset = ClipDataset(smooth_clips(1, ANIMATE_FRAMES, FRAME_SIZE, SEED + 54), False)
+    frames = []
+
+    class Recording(Animator):
+        def animate_frame(self, clip_state, driving_frame):
+            out = super().animate_frame(clip_state, driving_frame)
+            frames.append(out[0][0].cpu().numpy())
+            return out
+
+    plain = evals.Animator
+    evals.Animator = Recording
+    reset(kernels)
+    t0 = time.perf_counter()
+    try:
+        written = evals.animate(cfg, model, str(work / "animate"), dataset)
+    finally:
+        evals.Animator = plain
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    check(launches["corr_lookup"] == 6 * ANIMATE_FRAMES, f"animate lookups {launches}")
+    pair = PairedDataset(dataset, number_of_pairs=1)[0]
+    want = Animator(model, model.state_dict()).make_animation(pair["source_video"][0],
+                                                              pair["driving_video"])
+    same = len(frames) == len(want) == ANIMATE_FRAMES and all(
+        np.array_equal(g, w) for g, w in zip(frames, want))
+    result = {"phase": "animate", "config": "config/vox1.yaml mtia", "frames": len(frames),
+              "card": card, "seconds": seconds, "written": written, "launches": launches,
+              "bit_equal_to_make_animation": same}
+    print("phase10e " + json.dumps(result))
+    check(same, "evals.animate frames differ from Animator.make_animation's")
+    check(len(written) == 1 and Path(written[0]).exists(), f"animate wrote {written}")
+    return launches
+
+
+def phase_pth_import(trainer, cfg, work: Path):
+    """Phase 10f: a reference-style `.pth` written from the trained
+    celebvhq model's state dict (`module.` prefix, VGG19 convolutions under
+    `vgg.slice<k>.<i>`, the anti-alias buffers and VGG19 mean/std beside),
+    loaded through utils/checkpoint.py into a fresh model: no key missing
+    or unexpected, every tensor equal."""
+    import torch
+
+    from mrfa_tpu_torch.config import model_config
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.nn.vgg import _SLICE_CONVS
+    from mrfa_tpu_torch.utils.checkpoint import load_torch_weights_into
+
+    slice_of = {idx: k + 1 for k, convs in enumerate(_SLICE_CONVS) for idx, _ in convs}
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    sd = {}
+    for key, v in state.items():
+        if key.startswith("vgg.features_"):
+            idx, rest = key[len("vgg.features_"):].split(".", 1)
+            key = f"vgg.slice{slice_of[int(idx)]}.{idx}.{rest}"
+        sd["module." + key] = v
+    for scale in cfg["train_params"]["scales"]:
+        sd[f"module.pyramid.downs.{str(scale).replace('.', '-')}.weight"] = torch.ones(3, 1, 5, 5)
+    sd["module.down.weight"] = torch.ones(3, 1, 13, 13)
+    sd["module.vgg.mean"] = torch.zeros(1, 3, 1, 1)
+    sd["module.vgg.std"] = torch.ones(1, 3, 1, 1)
+    path = work / "reference.pth"
+    torch.save({"model": sd, "epoch": 1}, path)
+    torch.manual_seed(SEED + 55)
+    fresh = MRFA(model_config(cfg))
+    t0 = time.perf_counter()
+    missing, unexpected = load_torch_weights_into(fresh, str(path), verbose=False)
+    seconds = time.perf_counter() - t0
+    got = fresh.state_dict()
+    differ = [k for k, v in state.items() if not k.endswith("num_batches_tracked")
+              and not torch.equal(got[k].cpu(), v)]
+    print("phase10f " + json.dumps({
+        "phase": "pth_import", "keys": len(sd), "bytes": path.stat().st_size,
+        "load_s": seconds, "missing": missing, "unexpected": unexpected,
+        "tensors_differ": differ[:8]}))
+    check(not missing and not unexpected and not differ,
+          f".pth import: missing {missing[:4]}, unexpected {unexpected[:4]}, differ {differ[:4]}")
+
+
 def lookup_bwd_bytes(bq: int, coords, itemsize: int) -> int:
     """Bytes the lookup backward must move: the patch values and the coords
     read, g read (f32), both whole d_maps written (each query owns its
@@ -982,7 +1407,8 @@ def phase_timing(k, device):
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
-        for bq in (LOOKUP_BQS[-1], TRAIN_LOOKUP_BQS[-1]):
+        # the training BQ last: the lookup backward below reuses its inputs
+        for bq in (LOOKUP_BQS[-1], EVAL_LOOKUP_BQS[-1], TRAIN_LOOKUP_BQS[-1]):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + 10)
             lib_err = float((library_lookup(c0, c1, coords).float()
                              - corr_lookup_plain(c0, c1, coords).float()).abs().max())
@@ -1232,6 +1658,28 @@ def main() -> int:
     phase_profile([("serving", animator, state), ("serving_bf16", bf16_animator, bf16_state)],
                   clip[2], trainer, batch)
     stamp("phase 8")
+    del trainer, batch, animator, state, bf16_animator, bf16_state
+    torch.cuda.empty_cache()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="smoke_run_", dir=build))
+    try:
+        celeb, celeb_cfg, loop_paths = phase_loop_celebvhq(kernels, card, work)
+        paths.update(loop_paths)
+        stamp("phase 10a")
+        phase_pth_import(celeb, celeb_cfg, work)
+        del celeb
+        torch.cuda.empty_cache()
+        paths["loop_vox1"] = phase_loop_vox1(kernels, card, work)
+        stamp("phase 10b")
+        phase_train_gpu_vs_cpu(use_bg=True)
+        stamp("phase 10c")
+        phase_reconstruction_gpu_vs_cpu(work)
+        model, paths["reconstruction"] = phase_reconstruction(kernels, card, work)
+        paths["animate"] = phase_animate(kernels, card, model, work)
+        stamp("phase 10")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
     big = TRAIN_LOOKUP_BQS[-1]
@@ -1269,9 +1717,11 @@ def main() -> int:
         if name == "splat":
             entry["bin_launches_by_path"] = {path: c["splat_bins"] for path, c in paths.items()}
         if name == "corr_lookup":
-            serve = times[("corr_lookup", f32, LOOKUP_BQS[-1])]
-            entry["serving_bq4096"] = {k: serve[k] for k in
-                                       ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for label, bq in (("serving_bq4096", LOOKUP_BQS[-1]),
+                              ("eval_bq32768", EVAL_LOOKUP_BQS[-1])):
+                at = times[("corr_lookup", f32, bq)]
+                entry[label] = {k: at[k] for k in
+                                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         entries.append(entry)
     # the splat and lookup forward summed over each path's shapes (phase 7)
     print(json.dumps({"kernels": entries, "sums": sums}))

@@ -24,10 +24,6 @@ from mrfa_tpu_torch.precision import cast_params_for_inference
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import resolve_device
 
-# JAX-model subtrees the port does not build
-JAX_ONLY_MODULES = ("bg_predictor",)
-
-
 def movement_scale(kp_source, kp_driving_initial) -> float:
     """sqrt of the ratio of the convex-hull areas of the source and the initial
     driving keypoints (first sample)."""
@@ -121,7 +117,7 @@ class Animator:
     ):
         self.device = resolve_device(device)
         if "params" in weights:
-            load_jax_variables(model, weights, skip=JAX_ONLY_MODULES)
+            load_jax_variables(model, weights)
         else:
             model.load_state_dict(weights)
         self.model = model.to(self.device).eval()

@@ -1,12 +1,13 @@
 """MRFA composite model with the MTIA prior: serving surface and training forward.
 
 Counterpart of mrfa_tpu/models/mrfa.py::MRFA: the prior encoder (`encoder`),
-the dense motion network (`dense_motion`), the RaftFlow decoder (`decoder`)
-and, when the perceptual loss is on, the frozen VGG19 (`vgg`). `forward` is
-the training forward with its losses: the multi-scale VGG19 perceptual
-pyramid and the keypoint and jacobian equivariance losses under a random
-affine + TPS transform. The background predictor and the FOMM/TPSM priors
-are not ported yet.
+the dense motion network (`dense_motion`), the RaftFlow decoder (`decoder`),
+the background motion predictor (`bg_predictor`, built when the config's
+`bg_start` < `num_epochs`) and, when the perceptual loss is on, the frozen
+VGG19 (`vgg`). `forward` is the training forward with its losses: the
+multi-scale VGG19 perceptual pyramid, the keypoint and jacobian equivariance
+losses under a random affine + TPS transform and, with `use_bg`, the
+background consistency loss. The FOMM/TPSM priors are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 from torch import nn
 
+from mrfa_tpu_torch.models.bg_motion import BGMotionPredictor
 from mrfa_tpu_torch.models.dense_motion import DenseMotionNetwork
 from mrfa_tpu_torch.models.raft import RaftFlow
 from mrfa_tpu_torch.models.tokenpose import TokenPoseB
@@ -74,6 +76,8 @@ class MRFA(nn.Module):
         self.encoder = mtia_encoder_from_cfg(cfg["mtia_kp_detector"])
         self.dense_motion = DenseMotionNetwork(**cfg["dense_motion"],
                                                compute_dtype=compute_dtype)
+        if tp.get("bg_start", 0) < tp.get("num_epochs", 0):
+            self.bg_predictor = BGMotionPredictor()
         # remat and the lookup-dispatch keys only steer the JAX package's TPU paths
         raft_cfg = {
             k: v for k, v in cfg["raft_flow"].items()
@@ -90,8 +94,8 @@ class MRFA(nn.Module):
     def encode_kp(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.encoder(image)
 
-    def run_dense_motion(self, source, kp_d, kp_s) -> Dict[str, torch.Tensor]:
-        return self.dense_motion(source, kp_d, kp_s)
+    def run_dense_motion(self, source, kp_d, kp_s, bg_param=None) -> Dict[str, torch.Tensor]:
+        return self.dense_motion(source, kp_d, kp_s, bg_param)
 
     def kp_for_decoder(self, kp: Dict[str, torch.Tensor]) -> torch.Tensor:
         return kp["kp"]
@@ -115,18 +119,20 @@ class MRFA(nn.Module):
         """The training forward of (B, 3, H, W) frames in [0, 1].
 
         `transform` is the equivariance transform; when None it is drawn from
-        torch's default generator. Returns (generated (B, 3, H, W), the
+        torch's default generator. `use_bg` runs the background predictor
+        (the model must have built it). Returns (generated (B, 3, H, W), the
         warped-image + occlusion strip (B, 3, H, 8W), the loss terms, the
         source and driving keypoints).
         """
-        if use_bg:
-            raise NotImplementedError("the background predictor is not ported yet")
-        # encoder calls in the JAX order (BatchNorm running statistics
-        # depend on it): source, driving, then the transformed driving frame
+        # module calls in the JAX order (BatchNorm running statistics depend
+        # on it): the encoder on source and driving, bg(source, driving), the
+        # dense motion, the decoder, the encoder on the transformed driving
+        # frame, then bg(driving, source)
         kp_s = self.encode_kp(source)
         kp_d = self.encode_kp(driving)
         img_down = antialias_downsample(source, 0.25)
-        dense_motion = self.run_dense_motion(source, kp_d, kp_s)
+        bg_param = self.bg_predictor(source, driving) if use_bg else None
+        dense_motion = self.run_dense_motion(source, kp_d, kp_s, bg_param)
         gen, warp_img, occlusion = self.decoder(
             self.kp_for_decoder(kp_s), self.kp_for_decoder(kp_d), dense_motion,
             img_down, source,
@@ -163,9 +169,16 @@ class MRFA(nn.Module):
             if weights.get("equivariance_jacobian", 0) != 0 and "jacobian" in kp_d:
                 t_jac = random_transform_jacobian(transform, transformed_kp["kp"])
                 jacobian_transformed = torch.matmul(t_jac, transformed_kp["jacobian"])
-                value = torch.matmul(torch.linalg.inv(kp_d["jacobian"]), jacobian_transformed)
+                # inv_ex: no host sync for the singularity check (as jnp.linalg.inv)
+                inv_d = torch.linalg.inv_ex(kp_d["jacobian"]).inverse
+                value = torch.matmul(inv_d, jacobian_transformed)
                 eye = torch.eye(2, dtype=value.dtype, device=value.device)
                 losses["equivariance_jacobian"] = weights["equivariance_jacobian"] * torch.mean(
                     torch.abs(eye - value)
                 )
+
+        if use_bg:
+            value = torch.matmul(bg_param, self.bg_predictor(driving, source))
+            eye = torch.eye(3, dtype=value.dtype, device=value.device)
+            losses["bg"] = 10.0 * torch.mean(torch.abs(eye - value))
         return gen, warp_vis, losses, kp_s["kp"], kp_d["kp"]

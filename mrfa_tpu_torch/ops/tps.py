@@ -14,6 +14,7 @@ import torch
 
 from mrfa_tpu_torch.ops.grid import make_coordinate_grid
 from mrfa_tpu_torch.ops.sampler import grid_sample
+from mrfa_tpu_torch.utils.device import to_device
 
 
 class RandomTransformParams(NamedTuple):
@@ -31,15 +32,15 @@ def random_transform_params(
     device=None,
 ) -> RandomTransformParams:
     """Sample a random affine (+ TPS) warp, drawn on the generator's device
-    (the default generator when None) and moved to `device`."""
+    (the default generator when None) and moved to `device` (None: stays)."""
     gen_dev = generator.device if generator is not None else torch.device("cpu")
     noise = torch.randn(bs, 2, 3, generator=generator, device=gen_dev)
     theta = torch.eye(2, 3, device=gen_dev) + sigma_affine * noise
     if sigma_tps is None or points_tps is None:
-        return RandomTransformParams(theta.to(device), None, None)
+        return RandomTransformParams(to_device(theta, device), None, None)
     cps = make_coordinate_grid(points_tps, points_tps).reshape(1, points_tps**2, 2)
     cpar = sigma_tps * torch.randn(bs, 1, points_tps**2, generator=generator, device=gen_dev)
-    return RandomTransformParams(theta.to(device), cps.to(device), cpar.to(device))
+    return RandomTransformParams(*(to_device(t, device) for t in (theta, cps, cpar)))
 
 
 def _bump(params: RandomTransformParams, coords: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,9 @@ commit unpacked under `build/`), built from DIR's sources into DIR's
 `build/`; the inputs, bounds and timing are this file's. Comparing two trees
 on one card means one command that runs this script for each, in turns
 (A, B, B, A). It prints one JSON line per timed case and, last, the per-path
-sums: Σ launches × ms against Σ launches × bound, training per step and
-serving per frame. The script needs a CUDA device and fails without one.
+sums: Σ launches × ms against Σ launches × bound, training per step,
+serving per frame and reconstruction per chunk. The script needs a CUDA
+device and fails without one.
 
 `chip_smoke.py` takes its inputs, bounds and timing helpers from here.
 
@@ -17,9 +18,11 @@ The shapes: the training step's 17 feature-warp splats a step (B=10; three
 at each pyramid level from 8 to 128 px, two at 256 px, whose coarse warp is
 not computed), on a flow of a few pixels of white noise around the identity
 (`noisy`) and on a smooth one (`smooth`); the lookup's six calls a frame
-(B=1: BQ 64, 256, 1024 and three at 4096) and a step (B=10: 640, 2560, 10240
-and three at 40960). Bounds: the larger of the bytes each call must move
-over 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM data sheet).
+(B=1: BQ 64, 256, 1024 and three at 4096), a step (B=10: 640, 2560, 10240
+and three at 40960) and a reconstruction chunk (`evals.reconstruction`,
+frame_batch 8: 512, 2048, 8192 and three at 32768). Bounds: the larger of
+the bytes each call must move over 3.35 TB/s and its f32 operations over 67
+TFLOP/s (H100 SXM data sheet).
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ SPLAT_SHAPES = ((8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64)
 SPLATS_PER_STEP = {8: 3, 16: 3, 32: 3, 64: 3, 128: 3, 256: 2}
 LOOKUPS_PER_FRAME = {64: 1, 256: 1, 1024: 1, 4096: 3}  # B=1
 LOOKUPS_PER_STEP = {640: 1, 2560: 1, 10240: 1, 40960: 3}  # B=10
+LOOKUPS_PER_EVAL_CHUNK = {512: 1, 2048: 1, 8192: 1, 32768: 3}  # B=8
 FLOWS = ("noisy", "smooth", "wild", "collapse")
 
 
@@ -191,7 +195,7 @@ def make_flush(device):
 
 def time_shapes(splat, lookup, device, dtypes, flows=("noisy", "smooth"), iters: int = 20):
     """Kernel ms and bound of `splat` at the six splat shapes (each flow) and
-    of `lookup` at the eight lookup BQs; one row per case."""
+    of `lookup` at the twelve lookup BQs; one row per case."""
     import torch
 
     flush = make_flush(device)
@@ -209,7 +213,8 @@ def time_shapes(splat, lookup, device, dtypes, flows=("noisy", "smooth"), iters:
                             splat_flops(TRAIN_BATCH, n, c)),
                 })
                 del args
-        for i, bq in enumerate(tuple(LOOKUPS_PER_FRAME) + tuple(LOOKUPS_PER_STEP)):
+        for i, bq in enumerate(tuple(LOOKUPS_PER_FRAME) + tuple(LOOKUPS_PER_STEP)
+                               + tuple(LOOKUPS_PER_EVAL_CHUNK)):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=10 + i)
             rows.append({
                 "kernel": "corr_lookup", "dtype": name, "bq": bq,
@@ -248,14 +253,16 @@ def profile_splat(splat, device, dtype, cases=((256, 64, "smooth"), (64, 256, "s
 
 def path_sums(rows, flow: str = "smooth") -> dict:
     """Σ launches × ms and Σ launches × bound_ms per path and dtype: the
-    splat (on `flow`) and the lookup a training step, the lookup a frame."""
+    splat (on `flow`) and the lookup a training step, the lookup a frame and
+    a reconstruction chunk."""
     sums = {}
     for r in rows:
         if r["kernel"] == "splat" and r["flow"] == flow:
             keys = [("training_step", SPLATS_PER_STEP[r["res"]])]
         elif r["kernel"] == "corr_lookup":
             keys = [("training_step", LOOKUPS_PER_STEP.get(r["bq"], 0)),
-                    ("serving_frame", LOOKUPS_PER_FRAME.get(r["bq"], 0))]
+                    ("serving_frame", LOOKUPS_PER_FRAME.get(r["bq"], 0)),
+                    ("eval_chunk", LOOKUPS_PER_EVAL_CHUNK.get(r["bq"], 0))]
         else:
             continue
         for path, count in keys:

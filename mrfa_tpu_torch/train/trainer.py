@@ -3,27 +3,26 @@
 Counterpart of mrfa_tpu/train/trainer.py::make_train_step (reference
 train.py): forward in train mode (BatchNorm on batch statistics, running
 statistics updated), the loss terms summed, backward, per-subtree inf-norm
-clipping, Adam and the MultiStep learning rate. f32 throughout; the caller
-sets the TF32 policy (the port runs with TF32 off).
+clipping, Adam and the MultiStep learning rate on the main subtrees and, in
+the background predictor's phases (`use_bg`), on `bg_predictor` as well.
+f32 throughout; the caller sets the TF32 policy (the port runs with TF32 off).
 """
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
-import numpy as np
 import torch
 
-from mrfa_tpu_torch.animate import JAX_ONLY_MODULES
 from mrfa_tpu_torch.models.mrfa import MRFA
 from mrfa_tpu_torch.ops.tps import random_transform_params
-from mrfa_tpu_torch.train.optim import clip_inf_norm_subtrees, make_optimizer
+from mrfa_tpu_torch.train.optim import BG_SUBTREES, clip_inf_norm_subtrees, make_optimizer
 from mrfa_tpu_torch.utils.convert import load_jax_variables
-from mrfa_tpu_torch.utils.device import resolve_device
+from mrfa_tpu_torch.utils.device import frames_to_device, resolve_device
 
 
 class Trainer:
-    """One MRFA model and its optimizer, on CUDA unless the caller passes
+    """One MRFA model and its optimizers, on CUDA unless the caller passes
     another device.
 
     `weights` is a port `state_dict()` or the JAX package's variables
@@ -31,7 +30,10 @@ class Trainer:
     values drawn under the caller's RNG state, VGG19 included. The ImageNet
     VGG19 values are not in the repository, so a run on a random VGG19 warns:
     its perceptual loss is not the reference's. `generator` draws the
-    equivariance transforms (a CPU generator seeded 0 when None).
+    equivariance transforms (a CPU generator seeded 0 when None). A model
+    with a background predictor (`bg_start` < `num_epochs`) gets its second
+    Adam group, which steps only in `use_bg` steps, so its learning-rate
+    milestones count those steps (as the JAX package's `opt_state_bg`).
     """
 
     def __init__(
@@ -45,13 +47,9 @@ class Trainer:
         self.device = resolve_device(device)
         self.cfg = cfg
         tp = cfg["train_params"]
-        if tp.get("bg_start", 0) < tp.get("num_epochs", 0):
-            raise NotImplementedError(
-                "the background predictor is not ported yet: set bg_start >= num_epochs"
-            )
         self.model = MRFA(cfg, device=self.device)
         if weights is not None and "params" in weights:
-            load_jax_variables(self.model, weights, skip=JAX_ONLY_MODULES)
+            load_jax_variables(self.model, weights)
         elif weights is not None:
             self.model.load_state_dict(weights)
         if hasattr(self.model, "vgg") and weights is None:
@@ -61,21 +59,32 @@ class Trainer:
                 stacklevel=2,
             )
         self.model.train()
+        milestones = tp.get("epoch_milestones", [])
         self.optimizer, self.scheduler = make_optimizer(
-            self.model, tp["lr"], tp.get("epoch_milestones", []), steps_per_epoch
+            self.model, tp["lr"], milestones, steps_per_epoch
         )
+        self.optimizer_bg = self.scheduler_bg = None
+        if hasattr(self.model, "bg_predictor"):
+            self.optimizer_bg, self.scheduler_bg = make_optimizer(
+                self.model, tp["lr"], milestones, steps_per_epoch, BG_SUBTREES
+            )
         self.clip = tp.get("clip", 10.0) if tp.get("clip_grad", True) else None
         self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.steps = 0
 
     def _frames(self, x) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1], numpy or tensor -> (B, 3, H, W) f32 on the device."""
-        x = torch.as_tensor(np.ascontiguousarray(x) if not torch.is_tensor(x) else x)
-        return x.to(device=self.device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
+        return frames_to_device(x, self.device)
 
-    def step(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
-        """One training step on {"source", "driving"} -> the loss terms as
-        Python floats ("loss" is their sum) and the generated frames "gen"
-        (B, H, W, 3)."""
+    def train_step(
+        self, batch: Mapping[str, Any], use_bg: bool = False
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """One training step on {"source", "driving"} with no host sync ->
+        (the loss terms as 0-d tensors, "loss" their sum; the generated
+        frames "gen", the warp strip "warp_vis" (both NHWC) and the keypoints
+        "kp_s", "kp_d"), all on the device and detached."""
+        if use_bg and self.optimizer_bg is None:
+            raise ValueError("use_bg needs a model with a bg_predictor (bg_start < num_epochs)")
         source = self._frames(batch["source"])
         driving = self._frames(batch["driving"])
         tp = self.cfg["train_params"]
@@ -84,15 +93,60 @@ class Trainer:
             transform = random_transform_params(
                 self.generator, source.shape[0], **tp["transform_params"], device=self.device
             )
-        gen, _, losses, _, _ = self.model(source, driving, compute_loss=True, transform=transform)
+        gen, warp_vis, losses, kp_s, kp_d = self.model(
+            source, driving, compute_loss=True, transform=transform, use_bg=use_bg
+        )
         total = sum(losses.values())
-        self.optimizer.zero_grad(set_to_none=True)
+        self.model.zero_grad(set_to_none=True)
         total.backward()
+        self.apply_gradients(use_bg)
+        self.steps += 1
+        terms = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        extras = {"gen": gen.detach().permute(0, 2, 3, 1),
+                  "warp_vis": warp_vis.detach().permute(0, 2, 3, 1),
+                  "kp_s": kp_s.detach(), "kp_d": kp_d.detach()}
+        return terms, extras
+
+    def apply_gradients(self, use_bg: bool) -> None:
+        """Clip, then one update of the main group and, when `use_bg`, of the
+        background predictor's; each group's schedule steps with it."""
         if self.clip is not None:
             clip_inf_norm_subtrees(self.model, self.clip)
         self.optimizer.step()
         self.scheduler.step()
-        out = {"loss": float(total.detach())}
-        out.update({k: float(v.detach()) for k, v in losses.items()})
-        out["gen"] = gen.detach().permute(0, 2, 3, 1)
-        return out
+        if use_bg:
+            self.optimizer_bg.step()
+            self.scheduler_bg.step()
+
+    def step(self, batch: Mapping[str, Any], use_bg: bool = False) -> Dict[str, Any]:
+        """One training step on {"source", "driving"} -> the loss terms as
+        Python floats ("loss" is their sum) and the generated frames "gen"
+        (B, H, W, 3)."""
+        terms, extras = self.train_step(batch, use_bg)
+        return {**{k: float(v) for k, v in terms.items()}, "gen": extras["gen"]}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resumed run needs to continue bit for bit: the model
+        (running statistics included), both optimizers and schedules, the
+        equivariance generator's state and the step count."""
+        state = {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "generator": self.generator.get_state(),
+            "step": self.steps,
+        }
+        if self.optimizer_bg is not None:
+            state["optimizer_bg"] = self.optimizer_bg.state_dict()
+            state["scheduler_bg"] = self.scheduler_bg.state_dict()
+        return state
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        if self.optimizer_bg is not None:
+            self.optimizer_bg.load_state_dict(state["optimizer_bg"])
+            self.scheduler_bg.load_state_dict(state["scheduler_bg"])
+        self.generator.set_state(state["generator"])
+        self.steps = int(state["step"])

@@ -75,8 +75,8 @@ def load_jax_variables(
 
     Strict both ways: every port key must find its flax leaf with the same
     shape, and every flax leaf must be used except those under a top-level
-    module named in `skip` (e.g. the JAX model's `bg_predictor`, which the
-    port does not build). The frozen `vgg` and every BatchNorm running
+    module named in `skip` (subtrees the caller does not carry over). The
+    frozen `vgg` and every BatchNorm running
     statistic are filled like any other leaf. Raises KeyError or ValueError
     otherwise.
     """

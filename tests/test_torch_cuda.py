@@ -243,11 +243,20 @@ def test_corr_lookup_pooled_function_on_the_card(cuda):
 def _small_cfg(size=64, blocks=3, depth=1):
     """config/vox1.yaml's MTIA model cut to 64 px, 3-block hourglasses and a
     1-layer TokenPose (every width kept)."""
+    from mrfa_tpu_torch.config import model_config
+
+    return model_config(_small_run_cfg("vox1", size, blocks, depth))
+
+
+def _small_run_cfg(name, size=64, blocks=3, depth=1):
+    """The whole config/<name>.yaml (for `loop.train`), its model cut as
+    `_small_cfg` says and its perceptual pyramid to scales [1, 0.25]."""
     from pathlib import Path
 
-    from mrfa_tpu_torch.config import load_config, model_config
+    from mrfa_tpu_torch.config import load_config
 
-    cfg = model_config(load_config(str(Path(__file__).resolve().parents[1] / "config" / "vox1.yaml")))
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "config" / f"{name}.yaml"))
+    cfg["train_params"]["scales"] = [1, 0.25]
     cfg["dense_motion"]["num_blocks"] = blocks
     model = cfg["mtia_kp_detector"]["MODEL"]
     model["TRANSFORMER_DEPTH"], model["IMAGE_SIZE"] = depth, [size, size]
@@ -279,3 +288,58 @@ def test_animate_chunk_graph_equals_frame_by_frame(cuda):
     assert torch.equal(got, want) and torch.equal(again, want.flip(0))
     # 6 lookups a frame step: the eager warm-up steps and 10 replays
     assert launches.counts()["corr_lookup"] - before == 6 * (FrameGraph.WARMUP_STEPS + 10)
+
+
+class _Clips:
+    """`FramesDataset`'s training items over in-memory random clips."""
+
+    def __init__(self, n, size, seed=0):
+        self.clips = np.random.RandomState(seed).rand(n, 2, size, size, 3).astype(np.float32)
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        a, b = np.sort(self.rng.choice(2, size=2))
+        return {"name": f"clip{i}", "source": self.clips[i, a], "driving": self.clips[i, b]}
+
+
+@pytest.mark.parametrize("name", ["celebvhq", "vox1"])
+def test_loop_epoch_of_two_steps_on_the_card(cuda, tmp_path, name):
+    """One epoch of 2 steps of `loop.train` at 64 px (celebvhq: background
+    predictor on): the kernels launch 6 lookups, 6 lookup backwards and 17
+    splats a step, the loss terms are finite (bg among them with celebvhq),
+    and the checkpoint restores into a new Trainer bit for bit."""
+    from mrfa_tpu_torch.config import model_config
+    from mrfa_tpu_torch.ops import launches
+    from mrfa_tpu_torch.train.loop import train
+    from mrfa_tpu_torch.train.trainer import Trainer
+    from mrfa_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    cfg = _small_run_cfg(name)
+    cfg["train_params"].update(num_epochs=1, batch_size=2, num_repeats=1, num_workers=1)
+    before = launches.counts()
+    with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
+        trainer = train(cfg, None, str(tmp_path), _Clips(4, 64), max_steps_per_epoch=2)
+    torch.cuda.synchronize()
+    counts = {k: n - before[k] for k, n in launches.counts().items()}
+    assert counts == {"corr_lookup": 12, "corr_lookup_bwd": 12, "splat": 34,
+                      "corr_lookup_pooled_bwd": 0, "stream_probe": 0}
+    (line,) = (tmp_path / "log.txt").read_text().splitlines()
+    terms = dict(t.split(" - ") for t in line.split(") ", 1)[1].split("; "))
+    assert ("bg" in terms) == (name == "celebvhq")
+    assert all(np.isfinite(float(v)) for v in terms.values())
+    saved, step = restore_checkpoint(str(tmp_path / "ckpt"))
+    assert step == 0 and saved["trainer"]["step"] == 2 == trainer.steps
+    with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
+        fresh = Trainer(model_config(cfg), steps_per_epoch=2)
+    fresh.load_state_dict(saved["trainer"])
+    for key, want in trainer.model.state_dict().items():
+        assert torch.equal(fresh.model.state_dict()[key], want), key
+    got, want = (t.optimizer.state_dict()["state"] for t in (fresh, trainer))
+    assert got.keys() == want.keys()
+    for i in want:
+        for k in want[i]:
+            assert torch.equal(got[i][k].cpu(), want[i][k].cpu()), (i, k)
+    assert torch.equal(fresh.generator.get_state(), trainer.generator.get_state())

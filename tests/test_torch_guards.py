@@ -26,6 +26,9 @@ from tests.torch_parity import mtia_cfg, train_cfg
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "mrfa_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "mrfa_tpu")
+# host packages the GPU machine lacks: imported only inside the functions
+# that need them (image and video files), never when a module is imported
+HOST_ONLY = ("imageio", "matplotlib", "pandas", "cv2", "orbax")
 
 
 def test_importing_the_port_loads_no_jax_and_no_mrfa_tpu():
@@ -65,6 +68,42 @@ def test_source_imports_no_jax_and_no_mrfa_tpu(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
+def test_importing_the_port_loads_no_host_only_package():
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(REPO)!r})
+before = set(sys.modules)
+import mrfa_tpu_torch
+for info in pkgutil.walk_packages(mrfa_tpu_torch.__path__, "mrfa_tpu_torch."):
+    importlib.import_module(info.name)
+bad = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in {HOST_ONLY!r})
+assert not bad, bad
+assert "mrfa_tpu_torch.cli.run" in sys.modules and "mrfa_tpu_torch.evals" in sys.modules
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_source_imports_host_only_packages_inside_functions_only(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in HOST_ONLY, f"{path}:{node.lineno} imports {name}"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -88,6 +127,25 @@ def test_trainer_raises_without_cuda_unless_cpu_is_asked(no_cuda):
         Trainer(cfg)
     with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
         assert Trainer(cfg, device="cpu").device.type == "cpu"
+
+
+def test_loop_evals_and_cli_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
+    from mrfa_tpu_torch import evals
+    from mrfa_tpu_torch.cli.run import main
+    from mrfa_tpu_torch.train.loop import train
+
+    cfg = train_cfg(64, blocks=3, depth=1)
+    cfg["train_params"].update(num_epochs=0, batch_size=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, None, str(tmp_path / "log"), [])
+    model = MRFA(cfg, device="cpu")
+    for run in (evals.reconstruction, evals.animate):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(cfg, model, str(tmp_path / "eval"), [])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--config", str(REPO / "config" / "vox1.yaml"), "--mode", "train"])
+    with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
+        assert train(cfg, None, str(tmp_path / "log"), [], device="cpu").device.type == "cpu"
 
 
 def _maps(bq=8, size=16, dtype=torch.float32, seed=0):

@@ -6,8 +6,11 @@ NCHW; the helpers transpose at the boundary.
 """
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -36,6 +39,17 @@ def smooth_image(b: int, size: int, seed: int = 0) -> np.ndarray:
     m[np.arange(size), lo] = 1.0 - frac
     m[np.arange(size), lo + 1] = frac
     return np.einsum("yi,bijc,xj->byxc", m, coarse, m).astype(np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for the module that imports this fixture: the
+    tier-1 run puts six test processes on eight cores, where more threads a
+    process only contend with the other processes (and the JAX compiles)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_init(module, *args, **kwargs):
@@ -140,3 +154,33 @@ def transform_arrays(b: int, seed: int = 0):
     theta = (np.eye(2, 3)[None] + 0.05 * rng.randn(b, 2, 3)).astype(np.float32)
     cpar = (0.005 * rng.randn(b, 1, 25)).astype(np.float32)
     return theta, cpar
+
+
+def loop_config(root: str, size: int = 64) -> dict:
+    """config/celebvhq.yaml cut to 64 px, 3-block hourglasses and a 1-layer
+    TokenPose; background predictor from epoch 0; 2 epochs of B=2, a
+    checkpoint each."""
+    cfg = train_cfg(size, blocks=3, depth=1)
+    cfg["train_params"].update(num_epochs=2, bg_start=0, batch_size=2, num_repeats=1,
+                               checkpoint_freq=1, num_workers=1)
+    cfg["dataset_params"] = {
+        "root_dir": root, "frame_shape": [size, size, 3], "id_sampling": False,
+        "augmentation_params": {"flip_param": {"horizontal_flip": True, "time_flip": True},
+                                "jitter_param": {"brightness": 0.1, "contrast": 0.1,
+                                                 "saturation": 0.1, "hue": 0.1}},
+    }
+    cfg["visualizer_params"] = {"draw_border": True, "colormap": "gist_rainbow"}
+    return cfg
+
+
+def write_png_videos(root, n_train=4, n_test=2, frames=5, size=64, seed=0):
+    """train/ and test/ splits of smooth frame-directory videos, as PNG."""
+    from mrfa_tpu_torch.utils.video import save_image
+
+    for split, n in (("train", n_train), ("test", n_test)):
+        for v in range(n):
+            d = os.path.join(root, split, f"id{v:02d}#{v}")
+            os.makedirs(d)
+            clip = smooth_image(frames, size, seed=seed + 100 * v + (split == "test"))
+            for t, f in enumerate(clip):
+                save_image(os.path.join(d, f"{t:03d}.png"), (255 * f).astype(np.uint8))
