@@ -11,8 +11,8 @@ and runs these phases; any failure exits non-zero:
 
   1. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, in f32 and bf16: the lookup forward at the serving, the
-     training and the reconstruction chunk's query counts (bit-exact in
-     f32) and at one count that is
+     training, the reconstruction chunk's and the 4-stream server's query
+     counts (bit-exact in f32) and at one count that is
      no multiple of its block's eight queries, the lookup backward at the
      training ones, the splat at the shapes of the training step's feature
      warps on noisy, smooth, wild and collapsing flows (its bins equal to
@@ -70,7 +70,23 @@ and runs these phases; any failure exits non-zero:
      `evals.reconstruction` (64 px against the CPU; then 2 clips of 12
      frames at 256 px in chunks of 8: frames/s, phase clocks, finite
      metrics) and `evals.animate` (8 frames, equal to
-     `Animator.make_animation`).
+     `Animator.make_animation`);
+ 11. the multi-stream server (`serving.AnimationServer`): on the card
+     against the CPU at the small config (S=3 different sources, with and
+     without the per-stream scale, `serve` and `serve_chunk` K=2); then at
+     full width (config/vox1.yaml's MTIA model, 256 px, random weights from
+     the seed) for S = 1, 4 and 8 streams in f32 and bf16: `open_streams`,
+     back-to-back `serve` steps (stream-frames/s), one call at a time from
+     host frames to host images (p50/p90), `serve_chunk` K=4 (its CUDA
+     graph, equal to `serve` frame by frame), busy ms a step, each stream
+     against a lone `Animator`, 6 lookups a step and, in f32, `serve` with
+     cuDNN's autotuner on;
+ 12. the FOMM and TPSM priors: the frame step and one training step on the
+     card against the CPU at the small config (TPSM with its channel
+     dropout and its detector's keypoints spread), then each on config/vox1.yaml with `prior_model` overridden
+     at full width: `Animator` serving as in phase 3, and `Trainer` steps at
+     batch 10 (TPSM with epoch 0's dropout): ms/step, peak memory and the
+     6 / 6 / 17 / 22 launches a step.
 
 Stdout ends with a `{"kernels": [...], "sums": {...}}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
@@ -210,7 +226,8 @@ def phase_kernels(k, device):
         worst = {"corr_lookup": 0.0, "corr_lookup_bwd": 0.0, "splat": 0.0}
         # the main paths' query counts, and one that is no multiple of the
         # kernel's eight queries a block
-        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS + EVAL_LOOKUP_BQS + (4099,)):
+        for i, bq in enumerate(LOOKUP_BQS + TRAIN_LOOKUP_BQS + EVAL_LOOKUP_BQS
+                               + (SERVER_BQ, 4099)):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + i)
             got = k["corr_lookup"](c0, c1, coords)
             want = corr_lookup_plain(c0, c1, coords)
@@ -315,12 +332,14 @@ def phase_kernels(k, device):
     return errs
 
 
-def small_cfg(size=64, blocks=3, depth=1, losses=False):
+def small_cfg(size=64, blocks=3, depth=1, losses=False, prior="mtia"):
     """The flagship MTIA model cut to 64 px, 3-block hourglasses and a 1-layer
     TokenPose; every width as in config/vox1.yaml. With `losses`, the
-    training losses of vox1.yaml cut to scales [1, 0.25]."""
+    training losses of vox1.yaml cut to scales [1, 0.25]. `prior` selects
+    the FOMM or TPSM prior instead, its sections (vox1.yaml's) cut to the
+    same hourglass depth."""
     cfg = {
-        "train_params": {"prior_model": "mtia", "num_epochs": 100, "bg_start": 1000},
+        "train_params": {"prior_model": prior, "num_epochs": 100, "bg_start": 1000},
         "dense_motion": {
             "block_expansion": 64, "max_features": 1024, "num_blocks": blocks,
             "scale_factor": 0.25, "num_kp": 10, "num_channels": 3,
@@ -349,6 +368,13 @@ def small_cfg(size=64, blocks=3, depth=1, losses=False):
             "transform_params": {"sigma_affine": 0.05, "sigma_tps": 0.005, "points_tps": 5},
             "lr": 2.0e-4, "epoch_milestones": [60, 90], "clip_grad": True, "clip": 10,
         })
+    full = vox1_cfg()
+    for key in ("fomm_kp_detector", "tpsm_kp_detector", "tpsm_dense_motion"):
+        cfg[key] = full[key]
+        if "num_blocks" in cfg[key]:
+            cfg[key]["num_blocks"] = blocks
+    if prior == "tpsm" and losses:
+        cfg["train_params"]["loss_weights"]["equivariance_jacobian"] = 0  # vox1.yaml: 0 for tpsm
     return cfg
 
 
@@ -363,17 +389,40 @@ def smooth_frames(b: int, size: int, gen, device, side: int = 8):
     return img.permute(0, 2, 3, 1).contiguous()
 
 
-def phase_gpu_vs_cpu(prior_only: bool = False):
-    """Phase 2: the frame step on the card against the port's CPU path."""
+def condition_prior(model, prior: str) -> None:
+    """Spread the random TPSM detector's keypoints: its ResNet-18 head's
+    bias, drawn from the seed, puts each keypoint at its own place in
+    [-0.7, 0.7]^2 (sigmoid * 2 - 1 of the logit). Left at its random
+    initialization, the head puts all 50 keypoints near the origin, some
+    pairs 4e-4 apart, and the TPS fit through a group's five is then ill
+    conditioned: the CPU's own f32 frame sits 3.0e-2 from its f64 frame
+    (see PERF.md). The FOMM detector's keypoints are spread already (0.15
+    apart or more at the training check's inputs) and stay as drawn."""
+    import torch
+
+    if prior != "tpsm":
+        return
+    fc = model.encoder.fg_encoder.fc
+    u = torch.rand(fc.bias.shape, generator=torch.Generator().manual_seed(SEED + 70))
+    u = 1.4 * u - 0.7
+    with torch.no_grad():
+        fc.bias.copy_(torch.log((1 + u) / (1 - u)))
+
+
+def phase_gpu_vs_cpu(prior_only: bool = False, prior: str = "mtia"):
+    """Phase 2: the frame step on the card against the port's CPU path (and
+    phase 12a: the same under the FOMM or TPSM prior, the TPSM detector's
+    keypoints spread by `condition_prior`), within 1e-4."""
     import torch
 
     from mrfa_tpu_torch.animate import Animator
     from mrfa_tpu_torch.models.mrfa import MRFA
 
-    cfg = small_cfg()
+    cfg = small_cfg(prior=prior)
     cfg["raft_flow"]["prior_only"] = prior_only
     torch.manual_seed(SEED)
     cpu_model = MRFA(cfg, device="cpu")
+    condition_prior(cpu_model, prior)
     weights = cpu_model.state_dict()
     on_cpu = Animator(cpu_model, weights, device="cpu")
     on_gpu = Animator(MRFA(cfg), weights)
@@ -384,9 +433,10 @@ def phase_gpu_vs_cpu(prior_only: bool = False):
     got = on_gpu.animate_frame(on_gpu.begin(source, driving[0]), driving[1])
     torch.cuda.synchronize()
     tol = 1e-4  # outputs in [0, 1]; f32 on both sides, sums in other orders
+    label = "phase2" if prior == "mtia" else f"phase12a {prior}"
     for name, g, w in zip(("generated", "warped", "occlusion"), got, want):
         err = float((g.cpu() - w).abs().max())
-        print(f"phase2 frame gpu-vs-cpu{' prior_only' * prior_only} {name}: "
+        print(f"{label} frame gpu-vs-cpu{' prior_only' * prior_only} {name}: "
               f"shape={tuple(g.shape)} max_abs_err={err:.3e} (tol {tol:.0e})")
         check(g.shape == w.shape and err <= tol, f"GPU frame step disagrees with CPU: {name}")
 
@@ -738,62 +788,86 @@ def phase_prior_only(kernels, card, clip):
     return numbers["launches"]
 
 
-def _trainer_pair_step(cfg, seed, with_gpu=True):
-    """A Trainer on the CPU and one on the card with the same weights and
-    equivariance transforms (the same CPU generator seed), and a batch."""
+def _trainer_pair_step(cfg, seed, n_gpu=1):
+    """A Trainer on the CPU and `n_gpu` on the card with the same weights
+    (the TPSM detector's spread by `condition_prior`), the same equivariance
+    transforms and dropout masks (the same CPU generator seeds), and a
+    batch."""
     import torch
 
     from mrfa_tpu_torch.train.trainer import Trainer
 
     torch.manual_seed(seed)
     on_cpu = Trainer(cfg, device="cpu", generator=torch.Generator().manual_seed(seed + 1))
+    condition_prior(on_cpu.model, cfg["train_params"]["prior_model"])
     if hasattr(on_cpu.model, "bg_predictor"):
         # off the identity init, so that the bg term is not zero at the first step
         with torch.no_grad():
             fc = on_cpu.model.bg_predictor.bg_encoder.fc.weight
             fc.copy_(0.01 * torch.randn(fc.shape, generator=torch.Generator().manual_seed(seed)))
-    on_gpu = None
-    if with_gpu:
+    on_gpu = []
+    for _ in range(n_gpu):
         weights = {k: v.clone() for k, v in on_cpu.model.state_dict().items()}
-        on_gpu = Trainer(cfg, generator=torch.Generator().manual_seed(seed + 1), weights=weights)
+        on_gpu.append(Trainer(cfg, generator=torch.Generator().manual_seed(seed + 1),
+                              weights=weights))
     batch = {k: smooth_frames(2, 64, torch.Generator().manual_seed(seed + i), "cpu")
              for i, k in enumerate(("source", "driving"), start=2)}
     return on_cpu, on_gpu, batch
 
 
-def phase_train_gpu_vs_cpu(use_bg: bool = False):
+def phase_train_gpu_vs_cpu(use_bg: bool = False, prior: str = "mtia"):
     """Phase 4: one training step on the card against the port's CPU path:
     loss terms (rtol 1e-4), the generated frames, every gradient (before
     Adam, after clipping) and the BatchNorm running statistics. With
     `use_bg` (phase 10c), the same with the background predictor on: its
     term among the losses, its gradients and statistics among the rest.
+    With `prior` (phase 12a), the same under the FOMM or TPSM prior; under
+    TPSM with the channel dropout on (p 0.1, epoch 0's), both trainers
+    drawing the same masks from their dropout generators' equal seeds.
 
     The randomly initialized network in train mode is sensitive at f32: a
     1e-6 change of its input moves deep gradients by tens of percent (see
     PERF.md). So beside 1e-3 of each tensor's largest |g| (1e-4 and 1e-5 for
     the frames and the statistics), the card may differ from the CPU by
     twice as much as the CPU's own step moves when the input frames move by
-    1e-6 (the largest of three such moves)."""
+    1e-6 (the largest of three such moves). Under a prior it may also differ
+    by twice as much as the card's step moves when cuDNN is off (PyTorch's
+    own convolutions on the card): under FOMM, cuDNN's convolution
+    algorithms move the gradients of the decoder's keypoint hourglass, whose
+    largest |g| is ~1e-4, by up to 21% of it, where the card without cuDNN
+    and every 1e-6 move of the CPU's inputs or keypoints stay inside the
+    floor (see PERF.md). A fault of the port's kernels or modules moves both
+    card steps alike, so it still shows against the CPU."""
     import torch
 
-    cfg = small_cfg(losses=True)
+    cfg = small_cfg(losses=True, prior=prior)
     if use_bg:
         cfg["train_params"]["bg_start"] = 0
-    label = "phase10c train bg" if use_bg else "phase4 train"
-    on_cpu, on_gpu, batch = _trainer_pair_step(cfg, SEED + 20)
-    want = on_cpu.step(batch, use_bg=use_bg)
-    got = on_gpu.step(batch, use_bg=use_bg)
+    label = ("phase10c train bg" if use_bg else "phase4 train") if prior == "mtia" else (
+        f"phase12a {prior} train")
+    dropout = {"dropout_flag": prior == "tpsm", "dropout_p": 0.1}
+    on_cpu, on_gpus, batch = _trainer_pair_step(cfg, SEED + 20, n_gpu=1 + (prior != "mtia"))
+    on_gpu = on_gpus[0]
+    want = on_cpu.step(batch, use_bg=use_bg, **dropout)
+    got = on_gpu.step(batch, use_bg=use_bg, **dropout)
+    card_twin = None
+    if prior != "mtia":
+        with torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=False,
+                                        allow_tf32=False):
+            on_gpus[1].step(batch, use_bg=use_bg, **dropout)
+        card_twin = dict(on_gpus[1].model.named_parameters())
     floors = []
     for i in range(3):
-        noisy, _, _ = _trainer_pair_step(cfg, SEED + 20, with_gpu=False)
+        noisy, _, _ = _trainer_pair_step(cfg, SEED + 20, n_gpu=0)
         gen = torch.Generator().manual_seed(SEED + 30 + i)
         moved = {k: v + 1e-6 * torch.randn(v.shape, generator=gen) for k, v in batch.items()}
-        floors.append((noisy, noisy.step(moved, use_bg=use_bg)))
+        floors.append((noisy, noisy.step(moved, use_bg=use_bg, **dropout)))
 
     def floor(fn):
         return 2 * max(fn(trainer, out) for trainer, out in floors)
 
-    terms = ["loss", "perceptual", "equivariance", "equivariance_jacobian"] + ["bg"] * use_bg
+    terms = (["loss", "perceptual", "equivariance"] + ["equivariance_jacobian"] * (prior != "tpsm")
+             + ["bg"] * use_bg)
     check(sorted(got) == sorted(terms + ["gen"]), f"loss terms {sorted(got)}")
     for k in terms:
         rel = abs(got[k] - want[k]) / abs(want[k])
@@ -806,22 +880,36 @@ def phase_train_gpu_vs_cpu(use_bg: bool = False):
     check(gen_err <= gen_tol, "train step generated frames disagree")
     cpu_p = dict(on_cpu.model.named_parameters())
     floor_p = [dict(t.model.named_parameters()) for t, _ in floors]
-    worst, n_grads, n_floor = (0.0, ""), 0, 0
+    worst, n_grads, n_floor, n_twin, twin_beyond = (0.0, ""), 0, 0, [], []
+    widest = (0.0, "")  # the largest err / max |g|
     for name, p in on_gpu.model.named_parameters():
         if p.grad is None:
             continue
+        check(bool(torch.isfinite(p.grad).all()), f"gradient of {name} not finite")
         n_grads += 1
         w = cpu_p[name].grad
         scale = max(float(w.abs().max()), 1e-30)
         err = float((p.grad.cpu() - w).abs().max())
         noise = 2 * max(float((fp[name].grad - w).abs().max()) for fp in floor_p)
         tol = max(1e-3 * scale, noise)
+        if card_twin is not None:
+            twin_err = float((card_twin[name].grad.cpu() - w).abs().max())
+            twin_beyond += [name] * (twin_err > tol)
+            if err > tol:
+                tol = max(tol, 2 * float((card_twin[name].grad - p.grad).abs().max()))
+                n_twin.append(name)
         check(err <= tol, f"gradient of {name}: err {err:.3e} > tol {tol:.3e}")
         worst = max(worst, (err / tol, name))
         n_floor += err > 1e-3 * scale
+        if scale >= 1e-5:  # not the ~0 gradients of biases that BatchNorm follows
+            widest = max(widest, (err / scale, name))
     print(f"{label} gpu-vs-cpu gradients: {n_grads} tensors, {n_floor} of them beyond "
-          f"1e-3 of their max |g| and inside the input-1e-6 floor; worst err / tol = "
-          f"{worst[0]:.3e} ({worst[1]})")
+          f"1e-3 of their max |g| and inside their floor; worst err / tol = "
+          f"{worst[0]:.3e} ({worst[1]}); widest err / max |g| (max |g| >= 1e-5) = "
+          f"{widest[0]:.3e} ({widest[1]})" + (
+              f"; {len(n_twin)} beyond the CPU's floor, inside the cuDNN-off floor: "
+              f"{n_twin[:6]}; the cuDNN-off step itself: {len(twin_beyond)} beyond the "
+              f"CPU's floor {twin_beyond[:6]}" if card_twin is not None else ""))
     cpu_state = on_cpu.model.state_dict()
     floor_state = [t.model.state_dict() for t, _ in floors]
     worst = 0.0
@@ -1329,6 +1417,286 @@ def phase_pth_import(trainer, cfg, work: Path):
           f".pth import: missing {missing[:4]}, unexpected {unexpected[:4]}, differ {differ[:4]}")
 
 
+SERVER_STREAMS = (1, 4, 8)
+SERVER_BQ = 16384  # the server's full-resolution lookup at S=4 (S=8 gives 32768)
+SERVER_WARMUP = 2
+SERVER_TIMED = 8  # back-to-back steps, then 2 timed chunks of CHUNK of them
+SERVER_LATENCY = 20  # one call at a time: p90 has 2 samples beyond it
+SERVER_ANIMATOR_TOL = 1e-4  # f32 streams against a lone Animator: outputs in [0, 1]
+PRIOR_WARMUP_STEPS = 1
+PRIOR_TIMED_STEPS = 3
+
+
+def phase_server_gpu_vs_cpu():
+    """Phase 11a: the multi-stream server on the card against the port's CPU
+    path at the small config, S=3 streams with different sources, with and
+    without the per-stream movement scale: the scales, `serve` and
+    `serve_chunk` (K=2, a CUDA graph on the card)."""
+    import torch
+
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.serving import AnimationServer
+
+    cfg = small_cfg()
+    torch.manual_seed(SEED)
+    cpu_model = MRFA(cfg, device="cpu")
+    weights = cpu_model.state_dict()
+    on_cpu = AnimationServer(cpu_model, weights, device="cpu")
+    on_gpu = AnimationServer(MRFA(cfg), weights)
+    gen = torch.Generator().manual_seed(SEED + 50)
+    sources = smooth_frames(3, 64, gen, "cpu").numpy()
+    frames = smooth_frames(9, 64, gen, "cpu").numpy().reshape(3, 3, 64, 64, 3)
+    tol = 1e-4  # outputs in [0, 1]; f32 on both sides, sums in other orders
+    for adapt in (False, True):
+        cpu_state = on_cpu.open_streams(sources, frames[0], adapt_movement_scale=adapt)
+        gpu_state = on_gpu.open_streams(sources, frames[0], adapt_movement_scale=adapt)
+        scale_err = float((gpu_state.scale.cpu() - cpu_state.scale).abs().max())
+        serve_err = float((on_gpu.serve(gpu_state, frames[1]).cpu()
+                           - on_cpu.serve(cpu_state, frames[1])).abs().max())
+        chunk = on_gpu.serve_chunk(gpu_state, frames[1:]).cpu()
+        chunk_err = float((chunk - on_cpu.serve_chunk(cpu_state, frames[1:])).abs().max())
+        print(f"phase11a server gpu-vs-cpu S=3 adapt_scale={adapt}: scales "
+              f"{gpu_state.scale.tolist()} max_abs_err={scale_err:.3e}; serve "
+              f"max_abs_err={serve_err:.3e}; serve_chunk K=2 max_abs_err={chunk_err:.3e} "
+              f"(tol {tol:.0e})")
+        check(chunk.shape == (2, 3, 64, 64, 3), f"serve_chunk shape {tuple(chunk.shape)}")
+        check(scale_err <= 1e-5 and serve_err <= tol and chunk_err <= tol,
+              "the server on the card disagrees with the CPU")
+
+
+def phase_server(kernels, card, weights, compute_dtype=None):
+    """Phase 11b: the multi-stream server at full width (config/vox1.yaml's
+    MTIA model at 256 px, `weights`) for S in SERVER_STREAMS streams with
+    different smooth sources: `open_streams`, warm-up and back-to-back
+    `serve` steps on frames already on the card (stream-frames/s), one call
+    at a time from host frames to host images (p50/p90), two `serve_chunk`
+    calls of K=4 (the CUDA graph, after its capture; equal to `serve` frame
+    by frame), the busy ms a step from a profile, each stream's first frame
+    against an `Animator` that runs it alone, and 6 lookups a step. Returns
+    the launch counts by path."""
+    import torch
+
+    from mrfa_tpu_torch.animate import Animator, FrameGraph
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.serving import AnimationServer
+
+    name = dtype_name(compute_dtype or torch.float32)
+    server = AnimationServer(MRFA(vox1_cfg(), compute_dtype=compute_dtype), weights)
+    animator = Animator(MRFA(vox1_cfg(), compute_dtype=compute_dtype), weights)
+    paths = {}
+    for n_streams in SERVER_STREAMS:
+        label = f"server_s{n_streams}_{name}"
+        gen = torch.Generator().manual_seed(SEED + 60 + n_streams)
+        sources = smooth_frames(n_streams, FRAME_SIZE, gen, "cpu").numpy()
+        n_dev = SERVER_WARMUP + SERVER_TIMED
+        frames = smooth_frames((1 + n_dev + SERVER_LATENCY) * n_streams, FRAME_SIZE, gen,
+                               "cpu").numpy().reshape(-1, n_streams, FRAME_SIZE, FRAME_SIZE, 3)
+        frames_dev = torch.from_numpy(frames[1:1 + n_dev]).cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        t0 = time.perf_counter()
+        state = server.open_streams(sources, frames[0])
+        torch.cuda.synchronize()
+        open_ms = (time.perf_counter() - t0) * 1e3
+        outs = [server.serve(state, f) for f in frames_dev[:SERVER_WARMUP]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs += [server.serve(state, f) for f in frames_dev[SERVER_WARMUP:]]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        lat_ms = []
+        for f in frames[1 + n_dev:]:
+            t0 = time.perf_counter()
+            host = server.serve(state, f).cpu().numpy()
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+        check(host.shape == (n_streams, FRAME_SIZE, FRAME_SIZE, 3) and bool(np.isfinite(host).all())
+              and float(host.min()) >= 0.0 and float(host.max()) <= 1.0, f"{label}: host output")
+        steps = n_dev + SERVER_LATENCY
+        launches = launch_counts(kernels)
+        check(launches["corr_lookup"] == 6 * steps,
+              f"{label}: corr_lookup launches {launches['corr_lookup']} != 6 x {steps} steps")
+        check(all(v == 0 for k, v in launches.items() if k != "corr_lookup"),
+              f"{label} launched another kernel than the lookup: {launches}")
+        paths[label] = launches
+        peak = torch.cuda.max_memory_allocated()
+
+        # the graph: a warm-up chunk (the capture), then the timed chunks
+        stack = frames_dev[SERVER_WARMUP:]
+        reset(kernels)
+        server.serve_chunk(state, stack[:CHUNK])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = [server.serve_chunk(state, stack[i:i + CHUNK])
+                  for i in range(0, SERVER_TIMED, CHUNK)]
+        torch.cuda.synchronize()
+        chunk_elapsed = time.perf_counter() - t0
+        chunk_steps = SERVER_TIMED + CHUNK + FrameGraph.WARMUP_STEPS
+        launches = launch_counts(kernels)
+        check(launches["corr_lookup"] == 6 * chunk_steps, f"{label} chunk lookups {launches}")
+        paths[label + "_chunk"] = launches
+        chunk_err = float((torch.cat(chunks) - torch.stack(outs[SERVER_WARMUP:])).abs().max())
+        check_later(chunk_err == 0.0, f"{label}: serve_chunk differs from serve by {chunk_err}")
+
+        _, busy_ms, idle = _profile(lambda: server.serve(state, frames_dev[0]), 2,
+                                    f"phase11b {label}", f"server_{label}_trace.json",
+                                    by_op=label == "server_s4_float32")
+
+        # each stream alone through an Animator, on its first served frame
+        worst_max, worst_mean = 0.0, 0.0
+        for s in range(n_streams):
+            clip = animator.begin(sources[s], frames[0, s])
+            alone = animator.animate_frame(clip, frames_dev[0, s])[0][0]
+            diff = (alone - outs[0][s]).abs()
+            worst_max, worst_mean = max(worst_max, float(diff.max())), max(worst_mean,
+                                                                              float(diff.mean()))
+        if compute_dtype is None:
+            check(worst_max <= SERVER_ANIMATOR_TOL,
+                  f"{label}: a stream differs from its lone Animator by {worst_max}")
+        else:
+            check(worst_mean <= BF16_MEAN_TOL,
+                  f"{label}: a stream differs from its lone Animator by {worst_mean} mean")
+        tuned = {}
+        # in f32, `serve` with cuDNN's autotuner in place of its heuristics,
+        # which put the S=4 step into the FFT-tiled convolution (see
+        # PERF.md), and at S=4 with PyTorch's own convolutions (cuDNN off).
+        # PyTorch caches a convolution's cuDNN plan by its shapes and its
+        # `deterministic` flag, not by `benchmark`: the autotuned run sets
+        # `deterministic` so that it tunes afresh instead of reusing the
+        # heuristics' plans (forward convolutions all are deterministic).
+        variants = {"autotuned": {"enabled": True, "benchmark": True, "deterministic": True}}
+        if n_streams == 4:
+            variants["cudnn_off"] = {"enabled": False, "benchmark": False,
+                                     "deterministic": False}
+        for variant, flags in variants.items() if compute_dtype is None else ():
+            with torch.backends.cudnn.flags(**flags, allow_tf32=False):
+                outs_v = [server.serve(state, f) for f in frames_dev[:SERVER_WARMUP]]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs_v += [server.serve(state, f) for f in frames_dev[SERVER_WARMUP:]]
+                torch.cuda.synchronize()
+                v_elapsed = time.perf_counter() - t0
+            v_err = max(float((a - b).abs().max()) for a, b in zip(outs_v, outs))
+            check(v_err <= SERVER_ANIMATOR_TOL,
+                  f"{label}: the {variant} step differs from the heuristic one by {v_err}")
+            tuned.update({f"{variant}_serve_ms_per_step": v_elapsed / SERVER_TIMED * 1e3,
+                          f"{variant}_serve_stream_frames_per_s": n_streams * SERVER_TIMED
+                          / v_elapsed, f"{variant}_vs_serve_max_abs": v_err})
+            del outs_v
+        result = {
+            "phase": "server", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+            "streams": n_streams, "dtype": name, "tf32": False, "card": card,
+            "open_streams_ms": open_ms, "steps_timed": SERVER_TIMED,
+            "serve_ms_per_step": elapsed / SERVER_TIMED * 1e3,
+            "serve_stream_frames_per_s": n_streams * SERVER_TIMED / elapsed,
+            "latency_steps": len(lat_ms),
+            "latency_ms_p50": float(np.percentile(lat_ms, 50)),
+            "latency_ms_p90": float(np.percentile(lat_ms, 90)),
+            "latency_ms_max": float(np.max(lat_ms)),
+            "chunk": CHUNK, "chunk_ms_per_step": chunk_elapsed / SERVER_TIMED * 1e3,
+            "chunk_stream_frames_per_s": n_streams * SERVER_TIMED / chunk_elapsed,
+            "chunk_vs_serve_max_abs": chunk_err,
+            "busy_ms_per_step": busy_ms, "idle_share": idle,
+            "vs_lone_animator_max_abs": worst_max, "vs_lone_animator_mean_abs": worst_mean,
+            "lookup_bq_full_res": n_streams * (FRAME_SIZE // 4) ** 2,
+            "lookups_per_step": paths[label]["corr_lookup"] / steps,
+            "peak_memory_bytes": peak, **tuned,
+        }
+        print("phase11b " + json.dumps(result))
+        del state, outs, chunks, frames_dev, stack
+    del server, animator
+    torch.cuda.empty_cache()
+    return paths
+
+
+def prior_cfg(prior: str) -> dict:
+    """config/vox1.yaml with `prior_model` overridden (under TPSM the
+    jacobian equivariance off, as vox1.yaml notes)."""
+    cfg = vox1_cfg()
+    cfg["train_params"]["prior_model"] = prior
+    if prior == "tpsm":
+        cfg["train_params"]["loss_weights"]["equivariance_jacobian"] = 0
+    return cfg
+
+
+def phase_prior(kernels, card, clip, prior: str):
+    """Phase 12b: the FOMM or TPSM prior at full width (config/vox1.yaml,
+    256 px, random weights from the seed): `Animator` serving as phase 3
+    drives it (frames/s, latency, 6 lookups a frame), then `Trainer` steps
+    at batch 10 (TPSM with the channel dropout of epoch 0, p 0.1): ms/step,
+    peak memory and 6 / 6 / 17 / 22 launches a step. Returns the launch
+    counts by path."""
+    import torch
+
+    from mrfa_tpu_torch.animate import Animator
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.train.loop import epoch_phase
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    cfg = prior_cfg(prior)
+    torch.manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = MRFA(cfg)
+    animator = Animator(model, model.state_dict())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    numbers, _, _ = _serve(animator, clip, kernels, f"{prior} serving", 6)
+    print("phase12b " + json.dumps({
+        "phase": f"{prior}_serving", "config": f"config/vox1.yaml {prior}", "size": FRAME_SIZE,
+        "batch": 1, "dtype": "float32", "tf32": False, "card": card, "model_build_s": build_s,
+        **numbers}))
+    paths = {f"{prior}_serving": numbers["launches"]}
+    del animator, model
+    torch.cuda.empty_cache()
+
+    _, dropout_flag, dropout_p = epoch_phase(cfg["train_params"], 0)
+    check(dropout_flag == (prior == "tpsm"), f"{prior}: epoch 0 dropout {dropout_flag}")
+    torch.manual_seed(SEED)
+    trainer = Trainer(cfg, generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    n_steps = PRIOR_WARMUP_STEPS + PRIOR_TIMED_STEPS
+    batches = [{k: smooth_frames(TRAIN_BATCH, FRAME_SIZE, gen, "cuda")
+                for k in ("source", "driving")} for _ in range(n_steps)]
+    before = [p.detach().clone() for p in trainer.optimizer.param_groups[0]["params"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    kw = {"dropout_flag": dropout_flag, "dropout_p": dropout_p}
+    losses = [trainer.step(b, **kw) for b in batches[:PRIOR_WARMUP_STEPS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [trainer.step(b, **kw) for b in batches[PRIOR_WARMUP_STEPS:]]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    for name, per_step in PER_STEP.items():
+        check(launches[name] == per_step * n_steps,
+              f"{prior} training: {name} launches {launches[name]} != {per_step} x {n_steps}")
+    for out in losses:
+        check(all(np.isfinite(out[k]) for k in out if k != "gen"), f"non-finite loss {out}")
+    check(("equivariance_jacobian" in losses[0]) == (prior == "fomm"),
+          f"{prior}: loss terms {sorted(losses[0])}")
+    moved = sum(float((p.detach() - q).abs().max() > 0)
+                for p, q in zip(trainer.optimizer.param_groups[0]["params"], before))
+    check(moved == len(before), f"{prior}: only {moved} of {len(before)} tensors changed")
+    result = {
+        "phase": f"{prior}_training", "config": f"config/vox1.yaml {prior}", "size": FRAME_SIZE,
+        "batch": TRAIN_BATCH, "dtype": "float32", "tf32": False, "card": card,
+        "dropout_flag": dropout_flag, "dropout_p": dropout_p,
+        "steps_timed": PRIOR_TIMED_STEPS, "ms_per_step": elapsed / PRIOR_TIMED_STEPS * 1e3,
+        "samples_per_s": TRAIN_BATCH * PRIOR_TIMED_STEPS / elapsed,
+        "peak_memory_bytes": peak, "launches": launches, "steps_total": n_steps,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "loss_first": losses[0]["loss"], "loss_last": losses[-1]["loss"],
+    }
+    print("phase12b " + json.dumps(result))
+    paths[f"{prior}_training"] = launches
+    del trainer, batches, before
+    torch.cuda.empty_cache()
+    return paths
+
+
 def lookup_bwd_bytes(bq: int, coords, itemsize: int) -> int:
     """Bytes the lookup backward must move: the patch values and the coords
     read, g read (f32), both whole d_maps written (each query owns its
@@ -1408,7 +1776,7 @@ def phase_timing(k, device):
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
         # the training BQ last: the lookup backward below reuses its inputs
-        for bq in (LOOKUP_BQS[-1], EVAL_LOOKUP_BQS[-1], TRAIN_LOOKUP_BQS[-1]):
+        for bq in (LOOKUP_BQS[-1], SERVER_BQ, EVAL_LOOKUP_BQS[-1], TRAIN_LOOKUP_BQS[-1]):
             c0, c1, coords = lookup_inputs(bq, dtype, device, seed=SEED + 10)
             lib_err = float((library_lookup(c0, c1, coords).float()
                              - corr_lookup_plain(c0, c1, coords).float()).abs().max())
@@ -1521,7 +1889,8 @@ def _profile(fn, n: int, label: str, trace_name: str, by_op: bool = False):
     """Device kernel time by name over `n` runs of `fn` (torch.profiler trace
     written to build/), and the device's idle share of the window from the
     first kernel's start to the last one's end. With `by_op`, also the ATen
-    operators with the most device time, by input shape."""
+    operators with the most device time, by input shape. Returns (time and
+    count by kernel name, busy ms a run, the idle share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1568,7 +1937,7 @@ def _profile(fn, n: int, label: str, trace_name: str, by_op: bool = False):
         print(f"{label}   splat-layout copies {sum(map(self_us, moved)) / n / 1e3:8.3f} ms "
               f"{sum(e.count for e in moved) // n:5d}x  aten::copy_ of (B, N, C) views "
               f"at the splat shapes")
-    return by_name
+    return by_name, busy / n / 1e3, 1 - busy / window
 
 
 def phase_profile(served, frames_dev, trainer, batch):
@@ -1585,8 +1954,8 @@ def phase_profile(served, frames_dev, trainer, batch):
                  f"frame_{label}_trace.json")
         stack = torch.stack(frames_dev[:CHUNK])
         animator.animate_chunk(state, stack)  # the clip's graph, captured if it is not
-        by_name = _profile(lambda: animator.animate_chunk(state, stack), 1,
-                           f"phase8 chunk {label}", f"chunk_{label}_trace.json")
+        by_name, _, _ = _profile(lambda: animator.animate_chunk(state, stack), 1,
+                                 f"phase8 chunk {label}", f"chunk_{label}_trace.json")
         seen = sum(c for name, (_, c) in by_name.items() if "corr_lookup_kernel" in name)
         counted = CHUNK * animator._graph.launches["corr_lookup"]
         print(f"phase8 chunk {label}: {seen} lookup kernels traced in {CHUNK} replays, "
@@ -1677,9 +2046,29 @@ def main() -> int:
         phase_reconstruction_gpu_vs_cpu(work)
         model, paths["reconstruction"] = phase_reconstruction(kernels, card, work)
         paths["animate"] = phase_animate(kernels, card, model, work)
+        del model
         stamp("phase 10")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    phase_server_gpu_vs_cpu()
+    stamp("phase 11a")
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    torch.manual_seed(SEED)
+    weights = MRFA(vox1_cfg()).state_dict()
+    for compute_dtype in (None, torch.bfloat16):
+        paths.update(phase_server(kernels, card, weights, compute_dtype))
+    del weights
+    stamp("phase 11b")
+    for prior in ("fomm", "tpsm"):
+        phase_gpu_vs_cpu(prior=prior)
+        phase_train_gpu_vs_cpu(prior=prior)
+    stamp("phase 12a")
+    for prior in ("fomm", "tpsm"):
+        paths.update(phase_prior(kernels, card, clip, prior))
+    stamp("phase 12b")
 
     f32, bf16 = torch.float32, torch.bfloat16
     big = TRAIN_LOOKUP_BQS[-1]
@@ -1718,6 +2107,7 @@ def main() -> int:
             entry["bin_launches_by_path"] = {path: c["splat_bins"] for path, c in paths.items()}
         if name == "corr_lookup":
             for label, bq in (("serving_bq4096", LOOKUP_BQS[-1]),
+                              ("server_bq16384", SERVER_BQ),
                               ("eval_bq32768", EVAL_LOOKUP_BQS[-1])):
                 at = times[("corr_lookup", f32, bq)]
                 entry[label] = {k: at[k] for k in

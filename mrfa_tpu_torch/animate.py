@@ -24,15 +24,21 @@ from mrfa_tpu_torch.precision import cast_params_for_inference
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import resolve_device
 
-def movement_scale(kp_source, kp_driving_initial) -> float:
-    """sqrt of the ratio of the convex-hull areas of the source and the initial
-    driving keypoints (first sample)."""
+def stream_scales(kp_source, kp_driving_initial) -> np.ndarray:
+    """(B,) sqrt of the ratio of the convex-hull areas of each sample's own
+    source and initial driving keypoints."""
     from scipy.spatial import ConvexHull
 
-    def area(kp):
-        return ConvexHull(kp["kp"][0].detach().cpu().numpy()).volume
+    kps, kpd = (kp["kp"].detach().float().cpu().numpy()
+                for kp in (kp_source, kp_driving_initial))
+    return np.array([np.sqrt(ConvexHull(s).volume) / np.sqrt(ConvexHull(d).volume)
+                     for s, d in zip(kps, kpd)])
 
-    return float(np.sqrt(area(kp_source)) / np.sqrt(area(kp_driving_initial)))
+
+def movement_scale(kp_source, kp_driving_initial) -> float:
+    """The first sample's `stream_scales`."""
+    return float(stream_scales({"kp": kp_source["kp"][:1]},
+                               {"kp": kp_driving_initial["kp"][:1]})[0])
 
 
 def normalize_kp(
@@ -46,10 +52,13 @@ def normalize_kp(
     """Relative-motion transfer: kp_new = kp_s + (kp_d - kp_d0) * scale.
 
     `adapt_movement_scale` is a bool (True: convex-hull area ratio of the
-    source and initial driving keypoints) or a precomputed float scale.
+    source and initial driving keypoints, first sample), a precomputed float
+    scale or a (B,) tensor of them, one a sample.
     """
     if isinstance(adapt_movement_scale, bool):
         scale = movement_scale(kp_source, kp_driving_initial) if adapt_movement_scale else 1.0
+    elif torch.is_tensor(adapt_movement_scale):
+        scale = adapt_movement_scale.reshape(-1, 1, 1)
     else:
         scale = adapt_movement_scale
 

@@ -28,6 +28,7 @@ from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import frames_to_device, resolve_device
 from mrfa_tpu_torch.utils.logger import Visualizer
 from mrfa_tpu_torch.utils.video import save_image, save_video
+from mrfa_tpu_torch.weights import lpips_variables
 
 
 def _lpips_module(weights: Optional[Mapping[str, Any]], device: torch.device) -> LpipsVgg:
@@ -62,12 +63,18 @@ def reconstruction(
 ) -> Dict[str, Any]:
     """Reconstruct every test video from its first frame with `model` (its
     weights as loaded) and return the mean L1, LPIPS and PSNR over all
-    frames, the frame count and the per-phase wall clocks (seconds)."""
+    frames, the frame count and the per-phase wall clocks (seconds). LPIPS
+    takes `lpips_weights`, else the vendored `weights.LPIPS_FILE`, else the
+    uniform-weight variant (with a warning)."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     png_dir = os.path.join(log_dir, "reconstruction/png")
     log_dir = os.path.join(log_dir, "reconstruction")
     os.makedirs(png_dir, exist_ok=True)
+    lpips_source = "given"
+    if lpips_weights is None:  # the vendored LPIPS weights, where converted
+        lpips_weights = lpips_variables()
+        lpips_source = "uniform-fallback" if lpips_weights is None else "vendored"
     lpips = _lpips_module(lpips_weights, dev)
 
     # Frames go through in fixed-size chunks: the source broadcast over the
@@ -142,7 +149,7 @@ def reconstruction(
         "lpips": float(np.mean(lpips_list)) if lpips_list else float("nan"),
         "psnr": float(np.mean(psnr_list)) if psnr_list else float("nan"),
         "frames": len(loss_list),
-        "lpips_weights": "given" if lpips_weights is not None else "uniform-fallback",
+        "lpips_weights": lpips_source,
     }
     print(f"Reconstruction loss (L1): {results['l1']}")
     print(f"lpips loss: {results['lpips']}")

@@ -1,13 +1,17 @@
-"""MRFA composite model with the MTIA prior: serving surface and training forward.
+"""MRFA composite model: serving surface and training forward.
 
-Counterpart of mrfa_tpu/models/mrfa.py::MRFA: the prior encoder (`encoder`),
-the dense motion network (`dense_motion`), the RaftFlow decoder (`decoder`),
+Counterpart of mrfa_tpu/models/mrfa.py::MRFA: the prior that
+`train_params.prior_model` selects (mtia: the TokenPose encoder; fomm: the
+hourglass `KPDetector`; tpsm: the ResNet `TPSKPDetector` with the TPS dense
+motion) as the encoder (`encoder`) and the dense motion network
+(`dense_motion`), the RaftFlow decoder (`decoder`),
 the background motion predictor (`bg_predictor`, built when the config's
 `bg_start` < `num_epochs`) and, when the perceptual loss is on, the frozen
 VGG19 (`vgg`). `forward` is the training forward with its losses: the
 multi-scale VGG19 perceptual pyramid, the keypoint and jacobian equivariance
 losses under a random affine + TPS transform and, with `use_bg`, the
-background consistency loss. The FOMM/TPSM priors are not ported yet.
+background consistency loss. Under TPSM the decoder sees each group of 5
+keypoints as their mean, and the dense motion may take the channel dropout.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 from torch import nn
 
 from mrfa_tpu_torch.models.bg_motion import BGMotionPredictor
-from mrfa_tpu_torch.models.dense_motion import DenseMotionNetwork
+from mrfa_tpu_torch.models.dense_motion import DenseMotionNetwork, TPSDenseMotionNetwork
+from mrfa_tpu_torch.models.kp_detector import KPDetector, TPSKPDetector
 from mrfa_tpu_torch.models.raft import RaftFlow
 from mrfa_tpu_torch.models.tokenpose import TokenPoseB
 from mrfa_tpu_torch.nn.vgg import Vgg19
@@ -67,15 +72,23 @@ class MRFA(nn.Module):
         dev = resolve_device(device)
         self.compute_dtype = compute_dtype
         tp = cfg["train_params"]
-        prior = tp["prior_model"]
-        if prior != "mtia":
-            raise NotImplementedError(f"prior_model {prior!r} is not ported yet (mtia only)")
+        self.prior_model = tp["prior_model"]
         self.scales = list(tp.get("scales", [1]))
         self.loss_weights = tp.get("loss_weights", {})
         self.transform_params = tp.get("transform_params", {})
-        self.encoder = mtia_encoder_from_cfg(cfg["mtia_kp_detector"])
-        self.dense_motion = DenseMotionNetwork(**cfg["dense_motion"],
-                                               compute_dtype=compute_dtype)
+        if self.prior_model == "fomm":
+            self.encoder = KPDetector(**cfg["fomm_kp_detector"])
+        elif self.prior_model == "tpsm":
+            self.encoder = TPSKPDetector(**cfg["tpsm_kp_detector"])
+        elif self.prior_model == "mtia":
+            self.encoder = mtia_encoder_from_cfg(cfg["mtia_kp_detector"])
+        else:
+            raise ValueError(f"unknown prior_model {self.prior_model!r}")
+        if self.prior_model == "tpsm":
+            self.dense_motion = TPSDenseMotionNetwork(**cfg["tpsm_dense_motion"])
+        else:
+            self.dense_motion = DenseMotionNetwork(**cfg["dense_motion"],
+                                                   compute_dtype=compute_dtype)
         if tp.get("bg_start", 0) < tp.get("num_epochs", 0):
             self.bg_predictor = BGMotionPredictor()
         # remat and the lookup-dispatch keys only steer the JAX package's TPU paths
@@ -94,11 +107,16 @@ class MRFA(nn.Module):
     def encode_kp(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.encoder(image)
 
-    def run_dense_motion(self, source, kp_d, kp_s, bg_param=None) -> Dict[str, torch.Tensor]:
-        return self.dense_motion(source, kp_d, kp_s, bg_param)
+    def run_dense_motion(self, source, kp_d, kp_s, bg_param=None, dropout_flag=False,
+                         dropout_p=0.0, generator=None) -> Dict[str, torch.Tensor]:
+        return self.dense_motion(source, kp_d, kp_s, bg_param, dropout_flag, dropout_p, generator)
 
     def kp_for_decoder(self, kp: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return kp["kp"]
+        """TPSM keypoints are averaged 5 -> 1 per group before RaftFlow."""
+        v = kp["kp"]
+        if self.prior_model == "tpsm":
+            return v.reshape(v.shape[0], -1, 5, 2).mean(dim=2)
+        return v
 
     def encode_source_cache(self, source, kp_source, img_down):
         """Per-clip-constant decoder source work: generator feature pyramid and
@@ -115,12 +133,18 @@ class MRFA(nn.Module):
         compute_loss: bool = True,
         transform: Optional[RandomTransformParams] = None,
         use_bg: bool = False,
+        dropout_flag: bool = False,
+        dropout_p=0.0,
+        dropout_generator: Optional[torch.Generator] = None,
     ):
         """The training forward of (B, 3, H, W) frames in [0, 1].
 
         `transform` is the equivariance transform; when None it is drawn from
         torch's default generator. `use_bg` runs the background predictor
-        (the model must have built it). Returns (generated (B, 3, H, W), the
+        (the model must have built it). `dropout_flag` takes the channel
+        dropout in the dense motion, each channel dropped with probability
+        `dropout_p`, the mask drawn from `dropout_generator` (torch's
+        default generator when None). Returns (generated (B, 3, H, W), the
         warped-image + occlusion strip (B, 3, H, 8W), the loss terms, the
         source and driving keypoints).
         """
@@ -132,7 +156,8 @@ class MRFA(nn.Module):
         kp_d = self.encode_kp(driving)
         img_down = antialias_downsample(source, 0.25)
         bg_param = self.bg_predictor(source, driving) if use_bg else None
-        dense_motion = self.run_dense_motion(source, kp_d, kp_s, bg_param)
+        dense_motion = self.run_dense_motion(source, kp_d, kp_s, bg_param, dropout_flag,
+                                             dropout_p, dropout_generator)
         gen, warp_img, occlusion = self.decoder(
             self.kp_for_decoder(kp_s), self.kp_for_decoder(kp_d), dense_motion,
             img_down, source,

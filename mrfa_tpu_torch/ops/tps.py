@@ -1,8 +1,14 @@
-"""The random affine + thin-plate-spline warp of the equivariance losses.
+"""Thin-plate-spline transforms.
 
-Counterpart of mrfa_tpu/ops/tps.py::random_transform_* (the reference
-equivariance `Transform`): an affine map plus an L1-distance TPS bump,
-U(r) = r^2 log(r + 1e-6) with r = |dx| + |dy|, added to both coordinates.
+Counterpart of mrfa_tpu/ops/tps.py, both of its flavours:
+  - `tps_fit` / `tps_warp_coordinates` / `tps_transform_grid`: the TPSM
+    prior's exact TPS through K groups of 5 keypoint pairs, with the radial
+    basis U(s) = s log(s + 1e-9) of the squared L2 distance s and the
+    (N+3)^2 system regularized by 0.01 I, solved per (batch, group);
+  - `random_transform_*`: the random affine + TPS warp of the equivariance
+    losses (the reference equivariance `Transform`): an affine map plus an
+    L1-distance TPS bump, U(r) = r^2 log(r + 1e-6) with r = |dx| + |dy|,
+    added to both coordinates.
 Randomness enters only through an explicit `torch.Generator`. Frames are
 NCHW; keypoint coordinates (B, M, 2) xy in [-1, 1].
 """
@@ -15,6 +21,54 @@ import torch
 from mrfa_tpu_torch.ops.grid import make_coordinate_grid
 from mrfa_tpu_torch.ops.sampler import grid_sample
 from mrfa_tpu_torch.utils.device import to_device
+
+
+class TpsParams(NamedTuple):
+    """A fitted TPS for G groups: x -> A x + b + sum_i w_i U(|x - c_i|^2)."""
+
+    theta: torch.Tensor  # (B, G, 2, 3) affine part
+    control_points: torch.Tensor  # (B, G, N, 2)
+    control_params: torch.Tensor  # (B, G, N, 2)
+
+
+def _radial(s: torch.Tensor) -> torch.Tensor:
+    """U(s) = s log(s + 1e-9) of a squared distance (0 at s = 0, the
+    diagonal of the fit's kernel matrix)."""
+    return s * torch.log(s + 1e-9)
+
+
+def tps_fit(kp_1: torch.Tensor, kp_2: torch.Tensor) -> TpsParams:
+    """Fit the per-group TPS that maps the (B, G, N, 2) control points
+    `kp_1` (the driving keypoints in the prior) onto `kp_2`."""
+    b, g, n, _ = kp_1.shape
+    d = kp_1[:, :, :, None, :] - kp_1[:, :, None, :, :]  # (B, G, N, N, 2)
+    k = _radial((d * d).sum(-1))
+    p = torch.cat([kp_1, torch.ones_like(kp_1[..., :1])], dim=3)  # (B, G, N, 3)
+    top = torch.cat([k, p.transpose(2, 3)], dim=2)  # (B, G, N+3, N)
+    right = torch.cat([p, kp_1.new_zeros(b, g, 3, 3)], dim=2)  # (B, G, N+3, 3)
+    l_mat = torch.cat([top, right], dim=3)
+    l_mat = l_mat + 0.01 * torch.eye(n + 3, dtype=kp_1.dtype, device=kp_1.device)
+    y = torch.cat([kp_2, kp_1.new_zeros(b, g, 3, 2)], dim=2)  # (B, G, N+3, 2)
+    param = torch.linalg.solve(l_mat, y)
+    return TpsParams(param[:, :, n:, :].transpose(2, 3), kp_1, param[:, :, :n, :])
+
+
+def tps_warp_coordinates(params: TpsParams, coords: torch.Tensor) -> torch.Tensor:
+    """Apply the fitted TPS to (B or 1, M, 2) coordinates -> (B, G, M, 2)."""
+    theta, cps, cpar = params
+    coords = coords.expand(theta.shape[0], *coords.shape[1:])
+    aff = torch.einsum("bgij,bmj->bgmi", theta[..., :2], coords) + theta[:, :, None, :, 2]
+    d = coords[:, None, None, :, :] - cps[:, :, :, None, :]  # (B, G, N, M, 2)
+    u = _radial((d * d).sum(-1))  # (B, G, N, M)
+    return aff + torch.einsum("bgnm,bgnc->bgmc", u, cpar)
+
+
+def tps_transform_grid(params: TpsParams, h: int, w: int) -> torch.Tensor:
+    """The dense warp of a whole (h, w) frame: (B, G, h, w, 2)."""
+    theta = params.theta
+    grid = make_coordinate_grid(h, w, dtype=theta.dtype, device=theta.device)
+    warped = tps_warp_coordinates(params, grid.reshape(1, h * w, 2))
+    return warped.reshape(*warped.shape[:2], h, w, 2)
 
 
 class RandomTransformParams(NamedTuple):

@@ -8,7 +8,8 @@ per-epoch log line, samples/s and visualization, and checkpoints every
 `checkpoint_freq` epochs and at the last one.
 
 A checkpoint holds the whole `Trainer` state (model, both optimizers and
-schedules, the equivariance generator, the step count), the epoch and the
+schedules, the equivariance generator and, under TPSM, the dropout
+generator, the step count), the epoch and the
 dataset's random state, so a run resumed from it continues as the straight
 run would have, bit for bit on the CPU, with one data worker (more workers
 draw from the dataset's shared random state in no fixed order).
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -31,6 +33,7 @@ from mrfa_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from mrfa_tpu_torch.utils.logger import Logger
+from mrfa_tpu_torch.weights import overlay_vgg19
 
 FLUSH_EVERY = 64  # steps whose loss terms stay on the device before one copy
 
@@ -38,7 +41,7 @@ FLUSH_EVERY = 64  # steps whose loss terms stay on the device before one copy
 def epoch_phase(tp: Dict[str, Any], epoch: int) -> Tuple[bool, bool, float]:
     """(use_bg, dropout_flag, dropout_p) of `epoch`, the JAX loop's formulas:
     the background predictor from `bg_start` on, and the TPSM prior's
-    channel-dropout schedule (TPSM is not ported yet: its model raises)."""
+    channel-dropout schedule."""
     num_epochs, bg_start = tp["num_epochs"], tp["bg_start"]
     use_bg = epoch >= bg_start and bg_start < num_epochs
     if tp["prior_model"] == "tpsm" and epoch < tp.get("dropout_epoch", 0):
@@ -113,8 +116,16 @@ def train(
     # the JAX loop's default: no clipping unless the config asks for it
     cfg["train_params"]["clip_grad"] = tp.get("clip_grad", False)
     torch.manual_seed(seed)
-    trainer = Trainer(cfg, device=device, steps_per_epoch=steps_per_epoch,
-                      generator=torch.Generator().manual_seed(seed + 1234))
+    # the equivariance and dropout generators: the JAX loop's "equivariance"
+    # and "dropout" rng streams. The vendored VGG19 is overlaid right after,
+    # where the JAX loop does it (so the overlay, not the Trainer, warns when
+    # the file is absent); a .pth or a checkpoint restored below overrides it.
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*RANDOMLY INITIALIZED VGG19")
+        trainer = Trainer(cfg, device=device, steps_per_epoch=steps_per_epoch,
+                          generator=torch.Generator().manual_seed(seed + 1234),
+                          dropout_generator=torch.Generator().manual_seed(seed + 1235))
+    overlay_vgg19(trainer.model)
     if checkpoint is not None and checkpoint.endswith(".pth"):
         load_torch_weights_into(trainer.model, checkpoint, drop_decoder_pos_embedding=True)
 
@@ -130,12 +141,12 @@ def train(
     logger = Logger(log_dir, visualizer_params=config.get("visualizer_params") or {},
                     checkpoint_freq=tp.get("checkpoint_freq", 100))
     for epoch in range(start_epoch, num_epochs):
-        use_bg, _, _ = epoch_phase(tp, epoch)
+        use_bg, dropout_flag, dropout_p = epoch_phase(tp, epoch)
         t0 = time.time()
         buf, last, n_steps = [], None, 0
         with contextlib.closing(loader.epoch(epoch, steps_per_epoch)) as batches:
             for batch in batches:
-                terms, extras = trainer.train_step(batch, use_bg=use_bg)
+                terms, extras = trainer.train_step(batch, use_bg, dropout_flag, dropout_p)
                 buf.append({k: v for k, v in terms.items() if k != "loss"})
                 last, n_steps = (batch, extras), n_steps + 1
                 if len(buf) >= FLUSH_EVERY:

@@ -1,4 +1,4 @@
-"""The MTIA training step.
+"""The training step, for each of the three priors.
 
 Counterpart of mrfa_tpu/train/trainer.py::make_train_step (reference
 train.py): forward in train mode (BatchNorm on batch statistics, running
@@ -27,11 +27,13 @@ class Trainer:
 
     `weights` is a port `state_dict()` or the JAX package's variables
     {'params', 'batch_stats'}; without it the model keeps the initializers'
-    values drawn under the caller's RNG state, VGG19 included. The ImageNet
-    VGG19 values are not in the repository, so a run on a random VGG19 warns:
-    its perceptual loss is not the reference's. `generator` draws the
-    equivariance transforms (a CPU generator seeded 0 when None). A model
-    with a background predictor (`bg_start` < `num_epochs`) gets its second
+    values drawn under the caller's RNG state, VGG19 included, and warns:
+    its perceptual loss is then not the reference's until the caller loads
+    the ImageNet VGG19 (`weights.overlay_vgg19`, as `loop.train` does after
+    building the Trainer). `generator` draws the equivariance transforms (a
+    CPU generator seeded 0 when None) and `dropout_generator` the TPSM
+    prior's channel-dropout masks (a CPU generator seeded 1 when None). A
+    model with a background predictor (`bg_start` < `num_epochs`) gets its second
     Adam group, which steps only in `use_bg` steps, so its learning-rate
     milestones count those steps (as the JAX package's `opt_state_bg`).
     """
@@ -43,6 +45,7 @@ class Trainer:
         steps_per_epoch: int = 1000,
         generator: Optional[torch.Generator] = None,
         weights: Optional[Mapping[str, Any]] = None,
+        dropout_generator: Optional[torch.Generator] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -55,7 +58,7 @@ class Trainer:
         if hasattr(self.model, "vgg") and weights is None:
             warnings.warn(
                 "the perceptual loss runs on a RANDOMLY INITIALIZED VGG19, not the "
-                "reference's ImageNet VGG19 (its values are not in the repository)",
+                "reference's ImageNet VGG19 (weights.overlay_vgg19 loads the vendored one)",
                 stacklevel=2,
             )
         self.model.train()
@@ -70,6 +73,8 @@ class Trainer:
             )
         self.clip = tp.get("clip", 10.0) if tp.get("clip_grad", True) else None
         self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.dropout_generator = (dropout_generator if dropout_generator is not None
+                                  else torch.Generator().manual_seed(1))
         self.steps = 0
 
     def _frames(self, x) -> torch.Tensor:
@@ -77,9 +82,11 @@ class Trainer:
         return frames_to_device(x, self.device)
 
     def train_step(
-        self, batch: Mapping[str, Any], use_bg: bool = False
+        self, batch: Mapping[str, Any], use_bg: bool = False, dropout_flag: bool = False,
+        dropout_p: float = 0.0,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """One training step on {"source", "driving"} with no host sync ->
+        """One training step on {"source", "driving"} with no host sync, the
+        channel dropout of probability `dropout_p` on when `dropout_flag` ->
         (the loss terms as 0-d tensors, "loss" their sum; the generated
         frames "gen", the warp strip "warp_vis" (both NHWC) and the keypoints
         "kp_s", "kp_d"), all on the device and detached."""
@@ -94,7 +101,9 @@ class Trainer:
                 self.generator, source.shape[0], **tp["transform_params"], device=self.device
             )
         gen, warp_vis, losses, kp_s, kp_d = self.model(
-            source, driving, compute_loss=True, transform=transform, use_bg=use_bg
+            source, driving, compute_loss=True, transform=transform, use_bg=use_bg,
+            dropout_flag=dropout_flag, dropout_p=dropout_p,
+            dropout_generator=self.dropout_generator,
         )
         total = sum(losses.values())
         self.model.zero_grad(set_to_none=True)
@@ -118,17 +127,19 @@ class Trainer:
             self.optimizer_bg.step()
             self.scheduler_bg.step()
 
-    def step(self, batch: Mapping[str, Any], use_bg: bool = False) -> Dict[str, Any]:
+    def step(self, batch: Mapping[str, Any], use_bg: bool = False, dropout_flag: bool = False,
+             dropout_p: float = 0.0) -> Dict[str, Any]:
         """One training step on {"source", "driving"} -> the loss terms as
         Python floats ("loss" is their sum) and the generated frames "gen"
         (B, H, W, 3)."""
-        terms, extras = self.train_step(batch, use_bg)
+        terms, extras = self.train_step(batch, use_bg, dropout_flag, dropout_p)
         return {**{k: float(v) for k, v in terms.items()}, "gen": extras["gen"]}
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything a resumed run needs to continue bit for bit: the model
         (running statistics included), both optimizers and schedules, the
-        equivariance generator's state and the step count."""
+        equivariance generator's state, under TPSM the dropout generator's
+        and the step count."""
         state = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -136,6 +147,8 @@ class Trainer:
             "generator": self.generator.get_state(),
             "step": self.steps,
         }
+        if self.model.prior_model == "tpsm":
+            state["dropout_generator"] = self.dropout_generator.get_state()
         if self.optimizer_bg is not None:
             state["optimizer_bg"] = self.optimizer_bg.state_dict()
             state["scheduler_bg"] = self.scheduler_bg.state_dict()
@@ -149,4 +162,6 @@ class Trainer:
             self.optimizer_bg.load_state_dict(state["optimizer_bg"])
             self.scheduler_bg.load_state_dict(state["scheduler_bg"])
         self.generator.set_state(state["generator"])
+        if self.model.prior_model == "tpsm":
+            self.dropout_generator.set_state(state["dropout_generator"])
         self.steps = int(state["step"])

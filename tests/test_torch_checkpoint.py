@@ -17,7 +17,7 @@ from mrfa_tpu_torch.utils.checkpoint import (
 )
 from mrfa_tpu_torch.utils.convert import flax_path, load_jax_variables
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
-    loop_config, one_torch_thread, train_cfg, write_png_videos,
+    loop_config, one_torch_thread, train_cfg, with_prior, write_png_videos,
 )
 
 SIZE = 64
@@ -92,6 +92,69 @@ def test_resume_is_bit_equal_to_a_straight_run(tmp_path):
     assert len(lines) == 2 and "; bg - " in lines[1]
     assert (tmp_path / "r" / "log.txt").read_text().splitlines() == lines[1:]
     _equal_trees(restore_checkpoint(str(tmp_path / "r" / "ckpt"))[0]["trainer"], want)
+
+
+def test_tpsm_resume_with_dropout_is_bit_equal_to_a_straight_run(tmp_path):
+    """The same as above under the TPSM prior with its channel dropout on
+    (epochs 0-1 < dropout_epoch): the dropout generator travels in the
+    checkpoint."""
+    from mrfa_tpu_torch.data.dataset import FramesDataset
+    from mrfa_tpu_torch.train.loop import epoch_phase, train
+
+    root = str(tmp_path / "data")
+    write_png_videos(root)
+    cfg = with_prior(loop_config(root), "tpsm")
+    assert [epoch_phase(cfg["train_params"], e)[1:] for e in (0, 1)] == [(True, 0.1),
+                                                                         (True, 0.13)]
+
+    def run(log, checkpoint=None):
+        data = FramesDataset(is_train=True, seed=7, **cfg["dataset_params"])
+        with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
+            return train(cfg, checkpoint, str(tmp_path / log), data, seed=0, device="cpu")
+
+    straight = run("a")
+    # a checkpoint is ~0.9 GB here: move the one resumed from, drop the rest
+    os.makedirs(tmp_path / "r" / "ckpt")
+    shutil.move(str(tmp_path / "a" / "ckpt" / "0"), str(tmp_path / "r" / "ckpt" / "0"))
+    shutil.rmtree(tmp_path / "a" / "ckpt")
+    resumed = run("r", str(tmp_path / "r" / "ckpt"))
+    shutil.rmtree(tmp_path / "r" / "ckpt")
+    want, got = straight.state_dict(), resumed.state_dict()
+    assert want["step"] == got["step"] == 4
+    assert "dropout_generator" in want
+    # the masks were drawn: the generator left its seed
+    assert not torch.equal(want["dropout_generator"],
+                           torch.Generator().manual_seed(1235).get_state())
+    _equal_trees(got, want)
+
+
+@pytest.mark.parametrize("prior", ["fomm", "tpsm"])
+def test_pth_import_takes_a_prior_state_dict(tmp_path, prior):
+    """A reference `.pth` of a FOMM or TPSM model (the port model's own keys)
+    fills every key, and equals the JAX package's import of it."""
+    from mrfa_tpu.utils.checkpoint import load_torch_weights_into as jload
+    from mrfa_tpu.utils.torch_convert import convert_state_dict
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    cfg = with_prior(train_cfg(SIZE, blocks=3, depth=1), prior)
+    cfg["train_params"]["bg_start"] = 0
+    torch.manual_seed(0)
+    source = MRFA(cfg, device="cpu").state_dict()
+    pth = str(tmp_path / "ref.pth")
+    _reference_pth(source, pth)
+    torch.manual_seed(1)
+    port = MRFA(cfg, device="cpu")
+    init = {k: v.clone() for k, v in port.state_dict().items()}
+    assert load_torch_weights_into(port, pth, verbose=False) == ([], [])
+    merged, jmissing, junexpected = jload(convert_state_dict(init), pth, verbose=False)
+    assert jmissing == [] and junexpected == []
+    via_jax = MRFA(cfg, device="cpu")
+    load_jax_variables(via_jax, merged)
+    _equal_trees(port.state_dict(), via_jax.state_dict())
+    os.remove(pth)
+    state = port.state_dict()
+    for key, v in source.items():
+        assert torch.equal(state[key], v), key
 
 
 def _reference_pth(state, path, drop=(), extra=None):

@@ -52,6 +52,26 @@ print("ok")
 
 
 @pytest.mark.parametrize(
+    "module", ["mrfa_tpu_torch.serving", "mrfa_tpu_torch.models.kp_detector",
+               "mrfa_tpu_torch.weights"],
+)
+def test_each_module_alone_loads_no_jax_and_no_mrfa_tpu(module):
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(REPO)!r})
+before = set(sys.modules)
+importlib.import_module({module!r})
+bad = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in {FORBIDDEN!r})
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+@pytest.mark.parametrize(
     "path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
@@ -119,6 +139,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Animator(model, model.state_dict())
     assert Animator(model, model.state_dict(), device="cpu").device.type == "cpu"
+
+
+def test_server_raises_without_cuda_unless_cpu_is_asked(no_cuda):
+    from mrfa_tpu_torch.serving import AnimationServer
+
+    model = MRFA(mtia_cfg(64, blocks=3, depth=1), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AnimationServer(model, model.state_dict())
+    assert AnimationServer(model, model.state_dict(), device="cpu").device.type == "cpu"
 
 
 def test_trainer_raises_without_cuda_unless_cpu_is_asked(no_cuda):

@@ -146,6 +146,30 @@ def train_cfg(size: int = 64, blocks: int = 3, depth: int = 1) -> dict:
     return cfg
 
 
+def with_prior(cfg: dict, prior: str, blocks: int = 3) -> dict:
+    """`cfg` (from `mtia_cfg` or `train_cfg`) switched to `prior`, with the
+    FOMM and TPSM sections of config/vox1.yaml cut to `blocks`-block
+    hourglasses (every width the flagship's); under TPSM the jacobian
+    equivariance is off (vox1.yaml: 0 for tpsm) and the channel-dropout
+    schedule is vox1.yaml's."""
+    cfg["train_params"]["prior_model"] = prior
+    cfg["fomm_kp_detector"] = {
+        "block_expansion": 32, "num_kp": 10, "num_channels": 3, "max_features": 1024,
+        "num_blocks": blocks, "temperature": 0.1, "scale_factor": 0.25,
+        "estimate_jacobian": True, "estimate_occlusion": False,
+    }
+    cfg["tpsm_kp_detector"] = {"num_tps": 10}
+    cfg["tpsm_dense_motion"] = {
+        "block_expansion": 64, "max_features": 1024, "num_blocks": blocks,
+        "scale_factor": 0.25, "num_tps": 10, "num_channels": 3,
+    }
+    if prior == "tpsm":
+        cfg["train_params"]["loss_weights"]["equivariance_jacobian"] = 0
+        cfg["train_params"].update(dropout_epoch=35, dropout_maxp=0.3, dropout_startp=0.1,
+                                   dropout_inc_epoch=10)
+    return cfg
+
+
 def transform_arrays(b: int, seed: int = 0):
     """numpy (theta (B, 2, 3), control_params (B, 1, 25)) of one equivariance
     transform, drawn as the reference does (sigma_affine 0.05, sigma_tps
