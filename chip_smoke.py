@@ -17,8 +17,11 @@ and runs these phases; any failure exits non-zero:
      training ones, the splat at the shapes of the training step's feature
      warps on noisy, smooth, wild and collapsing flows (its bins equal to
      `splat_bins_plain`'s as sets), the pooled lookup backward at the
-     probes' query counts, the streaming probe (f32, both variants) at the
-     stream probe's;
+     probes' query counts, the streaming probe (f32, both variants) at both
+     probes' BQ 4096 and 16384 and on 48x48 maps (each level ending in a
+     partial stage), bit-exact, its machine code (bulk copies, no per-thread
+     cp.async) and its rate after an L2 flush (above the memory rate fails:
+     bytes were skipped);
   2. the frame step on the card against the port's CPU path, at a small
      config, with TF32 off, with and without `prior_only`; and under the
      bf16 policy (every module's output dtype equal on both, the frames
@@ -47,7 +50,10 @@ and runs these phases; any failure exits non-zero:
   7. each kernel timed with CUDA events at its main path's largest shape,
      beside its plain version, a library yardstick and its bound (the larger
      of bytes over the memory rate and operations over the f32 rate), the
-     lookup also at the serving BQ 4096 and the reconstruction BQ 32768;
+     lookup also at the serving BQ 4096 and the reconstruction BQ 32768,
+     the streaming probe at BQ 4096 and 16384 beside a same-bytes library
+     read (`l0.sum(); l1.sum()`) and, at 16384, back to back without the
+     flush;
      the splat at all six shapes and the lookup at all twelve query counts,
      with the sums of launches x ms against launches x bound, training per
      step, serving per frame and reconstruction per chunk
@@ -127,6 +133,9 @@ PER_STEP = {"corr_lookup": 6, "corr_lookup_bwd": 6, "splat": 17, "splat_bins": 2
 PROBE_BQS = (256, 1024, 4096, 16384)  # the lookup probe's default query counts
 STREAM_BQ = 4096  # the stream probe's
 STREAM_QB = 16  # queries per block of the TPU probe's streaming
+# the stream probe's maps in phase 1: BQ and side; 48x48 maps (rows of 192
+# and 96 bytes) end each level in a partial stage of the kernel's ring
+STREAM_SHAPES = ((STREAM_BQ, MAP_SIZE), (16384, MAP_SIZE), (STREAM_BQ, 48))
 CHUNK = 4  # frames per animate_chunk call
 BF16_MEAN_TOL = 0.02  # bf16 frames against f32, mean abs (tests/test_precision.py)
 # The bf16 gate's clips: the side of the random grid each one's frames are
@@ -210,14 +219,20 @@ def phase_kernels(k, device):
         corr_lookup_plain,
         corr_lookup_pooled_bwd_plain,
     )
+    from mrfa_tpu_torch.ops.cuda_build import find_nvcc
     from mrfa_tpu_torch.ops.splat import splat_bins_plain, splat_plain
-    from mrfa_tpu_torch.ops.stream_probe import stream_probe_plain
+    from mrfa_tpu_torch.ops.stream_probe import launch_plan, stream_probe_plain
     from mrfa_tpu_torch.tools.kernel_times import (
         FLOWS,
+        HBM_BYTES_PER_S,
         SPLAT_SHAPES,
         TRAIN_BATCH,
+        cuda_ms,
         lookup_inputs,
+        make_flush,
         splat_inputs,
+        stream_bytes,
+        stream_levels,
     )
 
     errs = {}
@@ -316,18 +331,41 @@ def phase_kernels(k, device):
                   "far-out centres must give zero map and coordinate gradients")
             worst["corr_lookup_pooled_bwd"] = max(worst["corr_lookup_pooled_bwd"], err, dc_err)
         errs[dtype] = worst
-    # the streaming probe (f32 only), both variants, bit-exact
-    c0, c1, _ = lookup_inputs(STREAM_BQ, torch.float32, device, seed=SEED + 300)
-    levels = (c0.reshape(-1, MAP_SIZE), c1.reshape(-1, MAP_SIZE // 2))
-    for second in (levels[1], None):
-        got = k["stream_probe"](levels[0], second, STREAM_BQ, STREAM_QB)
-        want = stream_probe_plain(levels[0], second, STREAM_BQ, STREAM_QB)
-        torch.cuda.synchronize()
-        variant = "l0+l1" if second is not None else "l0"
-        err = float((got - want).abs().max())
-        print(f"phase1 stream_probe float32 bq={STREAM_BQ} qb={STREAM_QB} {variant}: "
-              f"shape={tuple(got.shape)} bit_exact={bool(torch.equal(got, want))}")
-        check(torch.equal(got, want), f"stream_probe {variant} not bit-exact: {err}")
+    # the streaming probe (f32 only): its machine code holds the bulk copy
+    # (UBLKCP) and no per-thread cp.async (LDGSTS); both variants bit-exact
+    # at the probes' BQs, and on 48x48 maps, whose levels end in a partial
+    # stage; then its rate after an L2 flush, which above the memory rate
+    # means skipped bytes
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(k["stream_probe"].library.target)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    bulk, per_thread = sass.count("UBLKCP"), sass.count("LDGSTS")
+    print(f"phase1 stream_probe SASS: {bulk} UBLKCP, {per_thread} LDGSTS")
+    check(bulk >= 1 and per_thread == 0, "stream_probe must stream with bulk copies alone")
+    flush = make_flush(device)
+    for i, (bq, size) in enumerate(STREAM_SHAPES):
+        levels = stream_levels(bq, device, seed=SEED + 300 + i, size=size)
+        plan = launch_plan([tuple(lv.shape) for lv in levels], 1)
+        for second in (levels[1], None):
+            got = k["stream_probe"](levels[0], second, bq, STREAM_QB)
+            want = stream_probe_plain(levels[0], second, bq, STREAM_QB)
+            torch.cuda.synchronize()
+            variant = "l0+l1" if second is not None else "l0"
+            err = float((got - want).abs().max())
+            print(f"phase1 stream_probe float32 bq={bq} {size}x{size} qb={STREAM_QB} {variant}: "
+                  f"shape={tuple(got.shape)} bit_exact={bool(torch.equal(got, want))}; last "
+                  f"stage rows {[lv.last_rows for lv in plan.levels]} of "
+                  f"{[lv.stage_rows for lv in plan.levels]}")
+            check(torch.equal(got, want), f"stream_probe {variant} bq={bq} {size}x{size} "
+                                          f"not bit-exact: {err}")
+        if size == MAP_SIZE:
+            ms = cuda_ms(lambda: k["stream_probe"](*levels, bq, STREAM_QB), 5, flush)
+            rate = stream_bytes(bq, levels) / (ms * 1e-3)
+            print(f"phase1 stream_probe float32 bq={bq}: {ms:.5f} ms after a flush, "
+                  f"{rate / 1e9:.1f} GB/s")
+            check(rate <= HBM_BYTES_PER_S, f"stream_probe bq={bq} streams {rate / 1e9:.1f} GB/s, "
+                                           "above the memory rate: bytes were skipped")
+        del levels, got, want
     errs[torch.float32]["stream_probe"] = 0.0
     return errs
 
@@ -1755,7 +1793,9 @@ def phase_timing(k, device):
     from mrfa_tpu_torch.ops.splat import splat_plain
     from mrfa_tpu_torch.ops.stream_probe import stream_probe_plain
     from mrfa_tpu_torch.tools.kernel_times import (
+        HBM_BYTES_PER_S,
         SPLAT_SHAPES,
+        STREAM_BQS,
         TRAIN_BATCH,
         bound,
         cuda_ms,
@@ -1767,7 +1807,10 @@ def phase_timing(k, device):
         splat_bytes,
         splat_flops,
         splat_inputs,
+        stream_levels,
+        stream_library,
         time_shapes,
+        time_stream,
     )
     from mrfa_tpu_torch.tools.probe_lookup import pooled_bwd_bytes, pooled_bwd_flops
 
@@ -1855,25 +1898,22 @@ def phase_timing(k, device):
         print(f"phase7 corr_lookup_pooled_bwd {name} {row['shape']}: " + json.dumps(row))
         rows[("corr_lookup_pooled_bwd", dtype)] = row
         del corr, coords, g, leaves, lib_out, lib_grads, plain
-    # the streaming probe (f32) at the stream probe's BQ, both levels
-    c0, c1, _ = lookup_inputs(STREAM_BQ, torch.float32, device, seed=SEED + 13)
-    l0, l1 = c0.reshape(-1, MAP_SIZE), c1.reshape(-1, MAP_SIZE // 2)
-    nb, n = STREAM_BQ // STREAM_QB, 8 * STREAM_QB
-    views = [lv.view(nb, lv.shape[0] // nb, lv.shape[1])[:, :n, :8] for lv in (l0, l1)]
-    lib = lambda: torch.stack(views).view(2, STREAM_BQ * 8, 8)  # noqa: E731
-    check(torch.equal(lib(), stream_probe_plain(l0, l1, STREAM_BQ, STREAM_QB)), "slice copy")
-    row = {
-        "shape": f"bq={STREAM_BQ} {MAP_SIZE}x{MAP_SIZE} qb={STREAM_QB}",
-        "ms": cuda_ms(lambda: k["stream_probe"](l0, l1, STREAM_BQ, STREAM_QB), 20, flush),
-        "plain_ms": cuda_ms(lambda: stream_probe_plain(l0, l1, STREAM_BQ, STREAM_QB), 10, flush),
-        # one torch.stack of the two strided views (yardstick only); it reads
-        # only the kept corners, where the probe reads every byte
-        "library_ms": cuda_ms(lib, 10, flush),
-        # the probe's function is to read every byte of both levels
-        **bound((l0.numel() + l1.numel()) * 4 + 2 * STREAM_BQ * 8 * 8 * 4, 0),
-    }
-    print(f"phase7 stream_probe float32 {row['shape']}: " + json.dumps(row))
-    rows[("stream_probe", torch.float32)] = row
+    # the streaming probe (f32), both levels, at the probes' BQs: the kernel,
+    # the plain version and two library yardsticks after the same flush (the
+    # torch.stack of the kept corners, equal output from fewer bytes, and
+    # l0.sum(); l1.sum(), every byte read once, as the probe reads them);
+    # at BQ 16384 also back to back without the flush
+    for i, bq in enumerate(STREAM_BQS):
+        l0, l1 = stream_levels(bq, device, seed=SEED + 13 + i)
+        check(torch.equal(stream_library(l0, l1, bq, STREAM_QB),
+                          stream_probe_plain(l0, l1, bq, STREAM_QB)), "slice copy")
+        del l0, l1
+        row = time_stream(k["stream_probe"], stream_probe_plain, bq, device, seed=SEED + 13 + i,
+                          qb=STREAM_QB, flush=flush)
+        print(f"phase7 stream_probe float32 {row['shape']}: " + json.dumps(row))
+        check(row["gb_per_s"] * 1e9 <= HBM_BYTES_PER_S,
+              f"stream_probe {row['shape']} above the memory rate: bytes were skipped")
+        rows[("stream_probe", torch.float32, bq)] = row
     del flush
     shape_rows = time_shapes(k["splat"], k["corr_lookup"], device, (torch.float32, torch.bfloat16))
     for row in shape_rows:
@@ -2082,7 +2122,7 @@ def main() -> int:
         ("corr_lookup_pooled_bwd", "corr_lookup_pooled_bwd.cu",
          "mrfa_tpu/ops/pallas_kernels.py:247", None, ("corr_lookup_pooled_bwd",)),
         ("stream_probe", "stream_probe.cu", "tools/probe_stream.py:61",
-         "tools/probe_stream.py:90", ("stream_probe",)),
+         "tools/probe_stream.py:90", ("stream_probe", STREAM_BQ)),
     ):
         row = times[(key[0], f32, *key[1:])]
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -2105,6 +2145,12 @@ def main() -> int:
             entry["also_replaces"] = also
         if name == "splat":
             entry["bin_launches_by_path"] = {path: c["splat_bins"] for path, c in paths.items()}
+        if name == "stream_probe":
+            # library_ms: the torch.stack of the kept corners (equal output,
+            # fewer bytes); library_same_bytes_ms: l0.sum(); l1.sum()
+            entry["library_same_bytes_ms"] = row["library_same_bytes_ms"]
+            entry["bq16384"] = {k: v for k, v in times[("stream_probe", f32, 16384)].items()
+                                if k != "shape"}
         if name == "corr_lookup":
             for label, bq in (("serving_bq4096", LOOKUP_BQS[-1]),
                               ("server_bq16384", SERVER_BQ),

@@ -1,6 +1,6 @@
 """Times the splat and the lookup forward at every main-path shape on the card.
 
-    python mrfa_tpu_torch/tools/kernel_times.py [--tree DIR] [--label NAME]
+    python mrfa_tpu_torch/tools/kernel_times.py [--tree DIR] [--label NAME] [--stream]
 
 With `--tree`, the kernels timed are those of the port in DIR (another
 checkout of this repository, for example a `git archive` of an earlier
@@ -23,6 +23,13 @@ and three at 40960) and a reconstruction chunk (`evals.reconstruction`,
 frame_batch 8: 512, 2048, 8192 and three at 32768). Bounds: the larger of
 the bytes each call must move over 3.35 TB/s and its f32 operations over 67
 TFLOP/s (H100 SXM data sheet).
+
+With `--stream` it times the streaming probe instead (`stream_probe`, both
+levels of 64x64 f32 maps at BQ 4096 and 16384, qb=16): the kernel and two
+yardsticks after the same flush, the torch.stack of the kept corners (the
+same output from fewer bytes) and `l0.sum(); l1.sum()` (every byte of both
+levels read once, as the probe must), and at BQ 16384 the kernel back to
+back without a flush.
 """
 from __future__ import annotations
 
@@ -45,6 +52,8 @@ LOOKUPS_PER_FRAME = {64: 1, 256: 1, 1024: 1, 4096: 3}  # B=1
 LOOKUPS_PER_STEP = {640: 1, 2560: 1, 10240: 1, 40960: 3}  # B=10
 LOOKUPS_PER_EVAL_CHUNK = {512: 1, 2048: 1, 8192: 1, 32768: 3}  # B=8
 FLOWS = ("noisy", "smooth", "wild", "collapse")
+STREAM_BQS = (4096, 16384)  # the stream probe's default and the lookup probe's largest
+STREAM_QB = 16  # queries per block of the TPU probe's streaming
 
 
 def lookup_inputs(bq: int, dtype, device, seed: int):
@@ -185,12 +194,103 @@ def bound(nbytes: int, flops: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def stream_levels(bq: int, device, seed: int, size: int = MAP_SIZE):
+    """The stream probe's two levels: (BQ*size, size) maps from a seed and
+    their 2x2 mean, (BQ*size/2, size/2), both f32 on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    corr = torch.randn(bq, size, size, generator=gen, device=device)
+    l1 = F.avg_pool2d(corr[:, None], 2)[:, 0]
+    return corr.reshape(bq * size, size), l1.reshape(bq * size // 2, size // 2).contiguous()
+
+
+def stream_bytes(bq: int, levels) -> int:
+    """Bytes the stream probe must move: every byte of its levels read once,
+    the (2, BQ*8, 8) f32 output written once."""
+    return sum(lv.numel() * lv.element_size() for lv in levels) + 2 * bq * 8 * 8 * 4
+
+
+def stream_library(l0, l1, bq: int, qb: int = STREAM_QB):
+    """The probe's output as one torch.stack of the kept corners' strided
+    views: equal output, but it reads only the corners."""
+    import torch
+
+    nb, n = bq // qb, 8 * qb
+    views = [lv.view(nb, lv.shape[0] // nb, lv.shape[1])[:, :n, :8] for lv in (l0, l1)]
+    return torch.stack(views).view(2, bq * 8, 8)
+
+
+def stream_same_bytes(l0, l1):
+    """A library read of the probe's bytes: every byte of both levels once."""
+    return l0.sum(), l1.sum()
+
+
+def back_to_back_ms(fn, iters: int) -> float:
+    """Mean device time of `fn` over `iters` runs back to back, no flush."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_stream(probe, plain, bq: int, device, seed: int, qb: int = STREAM_QB,
+                iters: int = 20, flush=None) -> dict:
+    """The stream probe's row at `bq`: kernel, plain and both library times
+    after the flush, its bound and rate; the kernel and the same-bytes read
+    after a reading flush; at BQ >= 16384 (344 MB, far beyond the 50 MB L2)
+    also both back to back without a flush."""
+    l0, l1 = stream_levels(bq, device, seed)
+    flush = flush or make_flush(device)
+    read_flush = make_read_flush(device)
+    nbytes = stream_bytes(bq, (l0, l1))
+    ms = cuda_ms(lambda: probe(l0, l1, bq, qb), iters, flush)
+    row = {
+        "shape": f"bq={bq} {MAP_SIZE}x{MAP_SIZE} qb={qb}", "ms": ms,
+        "plain_ms": cuda_ms(lambda: plain(l0, l1, bq, qb), iters // 2, flush),
+        # equal output from the corners alone (fewer bytes than the probe's)
+        "library_ms": cuda_ms(lambda: stream_library(l0, l1, bq, qb), iters // 2, flush),
+        # every byte of both levels read once, as the probe reads them
+        "library_same_bytes_ms": cuda_ms(lambda: stream_same_bytes(l0, l1), iters, flush),
+        **bound(nbytes, 0),
+        "gb_per_s": nbytes / ms / 1e6,
+        # both after a flush that leaves no dirty line in the L2
+        "ms_read_flush": cuda_ms(lambda: probe(l0, l1, bq, qb), iters, read_flush),
+        "library_same_bytes_ms_read_flush": cuda_ms(lambda: stream_same_bytes(l0, l1), iters,
+                                                    read_flush),
+    }
+    if bq >= 16384:
+        row["ms_back_to_back"] = back_to_back_ms(lambda: probe(l0, l1, bq, qb), iters)
+        row["library_same_bytes_ms_back_to_back"] = back_to_back_ms(
+            lambda: stream_same_bytes(l0, l1), iters)
+    return row
+
+
 def make_flush(device):
     """An L2 flush: zero 256 MB (> the 50 MB L2)."""
     import torch
 
     buf = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=device)
     return buf.zero_
+
+
+def make_read_flush(device):
+    """An L2 flush that reads 256 MB and leaves the L2 clean: after the
+    zeroing flush, the dirty lines it leaves are written back while the
+    timed kernel runs."""
+    import torch
+
+    buf = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    return buf.sum
 
 
 def time_shapes(splat, lookup, device, dtypes, flows=("noisy", "smooth"), iters: int = 20):
@@ -281,6 +381,8 @@ def main() -> int:
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]),
                         help="root of the checkout whose kernels are timed")
     parser.add_argument("--label", default=None, help="name printed on every line")
+    parser.add_argument("--stream", action="store_true",
+                        help="time the streaming probe instead of the splat and lookup")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
 
@@ -298,6 +400,13 @@ def main() -> int:
     label = args.label or args.tree
     print(json.dumps({"label": label, "package": str(Path(mrfa_tpu_torch.__file__).parent),
                       "device": torch.cuda.get_device_name(0)}), flush=True)
+    if args.stream:
+        from mrfa_tpu_torch.ops.stream_probe import stream_probe, stream_probe_plain
+
+        for bq in STREAM_BQS:
+            row = time_stream(stream_probe, stream_probe_plain, bq, torch.device("cuda"), seed=13)
+            print(json.dumps({"label": label, "kernel": "stream_probe", **row}), flush=True)
+        return 0
     rows = time_shapes(splat, corr_lookup, torch.device("cuda"),
                        (torch.float32, torch.bfloat16))
     for r in rows:

@@ -212,7 +212,9 @@ def test_corr_lookup_pooled_bwd_kernel_matches_plain(cuda, dtype, bq, size):
     assert not got[0][-1].any() and not got[1][-1].any()  # the far-out centre
 
 
-@pytest.mark.parametrize("bq,size,qb", [(4096, 64, 16), (64, 16, 8), (96, 64, 32)])
+# (48, 48, 16): rows of 192 and 96 bytes, so both levels end in a partial stage
+@pytest.mark.parametrize("bq,size,qb", [(4096, 64, 16), (64, 16, 8), (96, 64, 32),
+                                        (16384, 64, 16), (48, 48, 16)])
 def test_stream_probe_kernel_is_bit_exact(cuda, bq, size, qb):
     from mrfa_tpu_torch.ops.stream_probe import StreamProbe, stream_probe_plain
 
@@ -225,6 +227,22 @@ def test_stream_probe_kernel_is_bit_exact(cuda, bq, size, qb):
         torch.cuda.synchronize()
         assert torch.equal(got, stream_probe_plain(c0, second, bq, qb))
     assert probe.launches == 2
+
+
+def test_stream_probe_kernel_refuses_an_unaligned_view(cuda):
+    from mrfa_tpu_torch.ops.stream_probe import StreamProbe
+
+    probe = StreamProbe()
+    flat = torch.randn(32 * 64 * 64 + 4, device=cuda)
+    # storage offset 1: contiguous views 4 bytes past 16-byte alignment
+    c0_off = flat[1:1 + 32 * 64 * 64].view(32 * 64, 64)
+    c1_off = flat[1:1 + 32 * 32 * 32].view(32 * 32, 32)
+    c0, c1 = torch.randn(32 * 64, 64, device=cuda), torch.randn(32 * 32, 32, device=cuda)
+    assert c0_off.is_contiguous() and c0_off.data_ptr() % 16
+    for first, second in ((c0_off, c1), (c0_off, None), (c0, c1_off)):
+        with pytest.raises(ValueError, match="aligned"):
+            probe(first, second, 32, 16)
+    assert probe.launches == 0
 
 
 def test_corr_lookup_pooled_function_on_the_card(cuda):

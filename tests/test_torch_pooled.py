@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental import pallas as pl
 
 from mrfa_tpu.ops import pallas_kernels as pk
@@ -23,7 +25,13 @@ from mrfa_tpu_torch.ops.corr_lookup import (
     corr_lookup_pooled_bwd_b3,
     corr_lookup_pooled_bwd_plain,
 )
-from mrfa_tpu_torch.ops.stream_probe import StreamProbe, stream_probe_plain
+from mrfa_tpu_torch.ops.stream_probe import (
+    BLOCKS_PER_SM,
+    SLOT_BYTES,
+    StreamProbe,
+    launch_plan,
+    stream_probe_plain,
+)
 
 
 def _inputs(bq, seed, lo=-12.0, hi=76.0, integer=0):
@@ -179,3 +187,95 @@ def test_probes_run_on_the_cpu_and_print_finite_numbers(capsys):
     assert errs[0]["max_err"] <= 2e-5
     assert max(errs[1]["err_dcorr"], errs[2]["err_dcorr"]) <= 1e-5
     assert max(errs[1]["err_dcoords"], errs[2]["err_dcoords"]) <= 1e-4
+
+
+@settings(max_examples=200, deadline=None, derandomize=True, database=None)
+@given(levels=st.lists(st.tuples(st.integers(1, 5000), st.integers(2, 1024).map(lambda v: 4 * v)),
+                       min_size=1, max_size=2),
+       sms=st.integers(1, 200))
+def test_stream_probe_plan_tiles_every_level_once(levels, sms):
+    plan = launch_plan(levels, sms)
+    # a persistent grid, each block with a stage at least
+    assert 1 <= plan.blocks == min(plan.stages, BLOCKS_PER_SM * sms)
+    ends = [0] * len(levels)
+    for k in range(plan.stages):
+        level, row0, rows, nbytes = plan.stage(k)
+        lv = plan.levels[level]
+        assert row0 == ends[level]  # in order, no gap and no overlap
+        assert 1 <= rows <= lv.stage_rows and nbytes == rows * lv.row_bytes
+        assert nbytes % 16 == 0 and nbytes <= SLOT_BYTES
+        ends[level] = row0 + rows
+    last = -1
+    for (rows, w), lv, end in zip(levels, plan.levels, ends):
+        assert end == rows and lv.row_bytes == 4 * w  # every byte of the level
+        last += lv.stages  # the level's last stage, partial or whole, is copied
+        assert plan.stage(last)[2] == lv.last_rows and 1 <= lv.last_rows <= lv.stage_rows
+
+
+@pytest.mark.parametrize("bq,size,want", [
+    (4096, 64, [(64, 4096, 64), (128, 1024, 128)]),
+    (16384, 64, [(64, 16384, 64), (128, 4096, 128)]),
+    (4096, 48, [(85, 2314, 3), (170, 579, 44)]),  # both levels end in a partial stage
+])
+def test_stream_probe_plan_at_the_probe_shapes(bq, size, want):
+    plan = launch_plan([(bq * size, size), (bq * size // 2, size // 2)], sms=132)
+    assert [(lv.stage_rows, lv.stages, lv.last_rows) for lv in plan.levels] == want
+    assert plan.blocks == 264  # two persistent blocks on each of an H100's 132 SMs
+
+
+@pytest.mark.parametrize("rows", [2 ** 31, 2 ** 33])
+@pytest.mark.parametrize("level", [0, 1])
+def test_stream_probe_plan_refuses_levels_of_2_31_rows(level, rows):
+    shapes = [(4096 * 64, 64), (4096 * 32, 32)]
+    shapes[level] = (rows, shapes[level][1])
+    with pytest.raises(ValueError):
+        launch_plan(shapes, sms=132)
+    launch_plan([(2 ** 31 - 1, 8)], sms=132)  # the largest level it takes
+
+
+def test_stream_probe_takes_unaligned_views_and_new_widths_on_the_cpu():
+    """On CPU tensors the 16-byte alignment the bulk copies need does not
+    apply, and a width that divides no 16 KiB slot in whole stages is taken
+    as the card takes it."""
+    bq, qb = 32, 16
+    rng = np.random.RandomState(5)
+    flat = torch.from_numpy(rng.randn(bq * 24 * 40 + 1).astype(np.float32))
+    c0 = flat[1:].view(bq * 24, 40)  # storage offset 1: 4 bytes past alignment
+    c1 = torch.from_numpy(rng.randn(bq * 12, 20).astype(np.float32))
+    assert c0.data_ptr() % 16 and c0.is_contiguous()
+    for second in (c1, None):
+        got = StreamProbe()(c0, second, bq, qb)
+        want = stream_probe_plain(c0.clone(), second, bq, qb)
+        assert torch.equal(got, want) and got.shape == (2, bq * 8, 8)
+
+
+def test_stream_probe_plain_is_bit_exact_with_the_jax_null_kernels_on_partial_stages():
+    """48x48 maps: rows of 192 and 96 bytes, so both levels end in a partial
+    stage of the kernel's ring."""
+    bq = 32
+    corr = np.random.RandomState(4).randn(bq, 48, 48, 1).astype(np.float32)
+    c0 = corr[..., 0].reshape(bq * 48, 48)
+    c1 = np.array(jax_avg_pool(jnp.asarray(corr), 2))[..., 0].reshape(bq * 24, 24)
+    assert all(lv.last_rows < lv.stage_rows for lv in launch_plan([c0.shape, c1.shape], 1).levels)
+    want_both, want_l0 = _jax_null_streams(c0, c1, bq)
+    probe = StreamProbe()
+    np.testing.assert_array_equal(
+        probe(torch.from_numpy(c0), torch.from_numpy(c1), bq, pk.QB).numpy(), want_both)
+    np.testing.assert_array_equal(probe(torch.from_numpy(c0), None, bq, pk.QB).numpy(), want_l0)
+
+
+@pytest.mark.parametrize("evict_first", [True, False])
+def test_stream_sweep_patches_the_ring_and_the_l2_policy(evict_first):
+    from mrfa_tpu_torch.ops.cuda_build import CSRC_DIR
+    from mrfa_tpu_torch.tools.stream_sweep import variant_source
+
+    source = (CSRC_DIR / "stream_probe.cu").read_text()
+    out = variant_source(source, 32768, 3, 1, evict_first)
+    for line in ("constexpr int kSlotBytes = 32768;", "constexpr int kRing = 3;",
+                 "constexpr int kBlocksPerSm = 1;"):
+        assert line in out
+    # the shipped kernel's ring matches its wrapper's plan
+    assert f"constexpr int kSlotBytes = {SLOT_BYTES};" in source
+    assert f"constexpr int kBlocksPerSm = {BLOCKS_PER_SM};" in source
+    assert ("cache_hint" in out and "createpolicy" in out) == evict_first
+    assert out.count("cp.async.bulk.shared::cluster") == 1
