@@ -92,7 +92,31 @@ and runs these phases; any failure exits non-zero:
      dropout and its detector's keypoints spread), then each on config/vox1.yaml with `prior_model` overridden
      at full width: `Animator` serving as in phase 3, and `Trainer` steps at
      batch 10 (TPSM with epoch 0's dropout): ms/step, peak memory and the
-     6 / 6 / 17 / 22 launches a step.
+     6 / 6 / 17 / 22 launches a step;
+ 13. training under the bf16 policy (`Trainer(compute_dtype=torch.bfloat16)`,
+     f32 master weights): one step on the card against the CPU's bf16 step
+     at phase 4's setup, within twice the CPU's own bf16-to-f32 distance
+     measured in this run; config/vox1.yaml's model at full width, batch 10,
+     phase 5's steps (ms/step, samples/s, peak memory, 6 / 6 / 17 / 22
+     launches a step, every parameter moved, gradients and Adam moments
+     f32); phase 6's learning check in f32 and bf16 from the same weights,
+     both falling, the bf16 loss near the f32 one;
+ 14. the data path from files: the host codec's build (or why it does not
+     build), a PNG dataset written by the port (32 training clips of 16
+     frames at 256 px), `FramesDataset` + `BatchLoader` samples/s with the
+     config's workers and the decoders that served, `loop.train` on vox1
+     under `compute_dtype: bf16` from the files (ms/step, seconds a step
+     waits on the loader) beside the same loop on in-memory clips, and a
+     resume from its checkpoint;
+ 15. the CLIs: `convert_backbones` on random torchvision-shaped state dicts
+     (read back by `weights/`), `convert` on a reference-format `.pth` of
+     the full-width model, `demo` from the converted checkpoint on PNG
+     inputs (32 driving frames; plain and `--find_best_frame`): frames/s,
+     6 lookups a frame, the frames equal to `Animator.make_animation`'s;
+ 16. `utils.profiling` on the card: `trace` and `annotate` around 2 bf16
+     training steps (the spans and the port's kernels, in bf16, in the
+     trace; the cuDNN FFT-convolution share beside the f32 step's of phase
+     8), `StepTimer` against CUDA events.
 
 Stdout ends with a `{"kernels": [...], "sums": {...}}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
@@ -1421,24 +1445,11 @@ def phase_pth_import(trainer, cfg, work: Path):
 
     from mrfa_tpu_torch.config import model_config
     from mrfa_tpu_torch.models.mrfa import MRFA
-    from mrfa_tpu_torch.nn.vgg import _SLICE_CONVS
     from mrfa_tpu_torch.utils.checkpoint import load_torch_weights_into
 
-    slice_of = {idx: k + 1 for k, convs in enumerate(_SLICE_CONVS) for idx, _ in convs}
     state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    sd = {}
-    for key, v in state.items():
-        if key.startswith("vgg.features_"):
-            idx, rest = key[len("vgg.features_"):].split(".", 1)
-            key = f"vgg.slice{slice_of[int(idx)]}.{idx}.{rest}"
-        sd["module." + key] = v
-    for scale in cfg["train_params"]["scales"]:
-        sd[f"module.pyramid.downs.{str(scale).replace('.', '-')}.weight"] = torch.ones(3, 1, 5, 5)
-    sd["module.down.weight"] = torch.ones(3, 1, 13, 13)
-    sd["module.vgg.mean"] = torch.zeros(1, 3, 1, 1)
-    sd["module.vgg.std"] = torch.ones(1, 3, 1, 1)
     path = work / "reference.pth"
-    torch.save({"model": sd, "epoch": 1}, path)
+    parity_helpers().reference_pth(state, path)
     torch.manual_seed(SEED + 55)
     fresh = MRFA(model_config(cfg))
     t0 = time.perf_counter()
@@ -1448,7 +1459,7 @@ def phase_pth_import(trainer, cfg, work: Path):
     differ = [k for k, v in state.items() if not k.endswith("num_batches_tracked")
               and not torch.equal(got[k].cpu(), v)]
     print("phase10f " + json.dumps({
-        "phase": "pth_import", "keys": len(sd), "bytes": path.stat().st_size,
+        "phase": "pth_import", "model_keys": len(state), "bytes": path.stat().st_size,
         "load_s": seconds, "missing": missing, "unexpected": unexpected,
         "tensors_differ": differ[:8]}))
     check(not missing and not unexpected and not differ,
@@ -2002,7 +2013,551 @@ def phase_profile(served, frames_dev, trainer, batch):
               f"{counted} counted")
         check(seen == counted == 6 * CHUNK,
               f"chunk {label}: {seen} lookups traced, {counted} counted, want {6 * CHUNK}")
-    _profile(lambda: trainer.step(batch), 1, "phase8 training", "step_trace.json", by_op=True)
+    by_name, _, _ = _profile(lambda: trainer.step(batch), 1, "phase8 training",
+                             "step_trace.json", by_op=True)
+    share = fft_share(by_name)
+    print(f"phase8 training: cuDNN FFT-convolution share of busy time {share:.4f}")
+    return share
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-16: bf16 training, the data path from files, the CLIs, profiling
+
+# how far the card's bf16 step may sit from the CPU's bf16 step, in units of
+# the CPU's own bf16-to-f32 distance measured in the same run (the random
+# 64 px step is ill conditioned: bf16 rounding alone moves a gradient tensor
+# by tens of percent of its max |g|, tests/test_torch_bf16_train.py)
+BF16_STEP_FACTOR = 2.0
+# the bf16 learning check: the mean loss of the last 10 of 20 steps within
+# this relative distance of the f32 run's, from the same weights and batch.
+# CPU readings at seeds 40 and 60: 0.017 and 0.076 (the last 3 steps alone:
+# 0.026 and 0.111, each step's loss moving with its random transform)
+BF16_LEARN_GATE = 0.15
+LEARN_TAIL = 10
+DATA_CLIPS, DATA_FRAMES, DATA_TEST_CLIPS = 32, 16, 4
+DATA_STEPS = 3  # loop steps an epoch from files
+DEMO_FRAMES = 32
+HEADERS = ("/usr/include/png.h", "/usr/include/jpeglib.h", "/usr/include/zlib.h")
+
+
+def parity_helpers():
+    """tests/torch_parity.py, loaded from its file (an installed package
+    named `tests` may shadow the repository's test directory)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_parity.py"
+    spec = importlib.util.spec_from_file_location("smoke_torch_parity", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _step_grads(trainer, batch):
+    """One step; returns (loss terms, generated, {name: pre-clip grad on the CPU})."""
+    import mrfa_tpu_torch.train.trainer as trainer_mod
+
+    grads, clip = {}, trainer_mod.clip_inf_norm_subtrees
+
+    def spy(model, max_norm):
+        grads.update({n: p.grad.detach().float().cpu().clone()
+                      for n, p in model.named_parameters() if p.grad is not None})
+        return clip(model, max_norm)
+
+    trainer_mod.clip_inf_norm_subtrees = spy
+    try:
+        out = trainer.step(batch)
+    finally:
+        trainer_mod.clip_inf_norm_subtrees = clip
+    return {k: v for k, v in out.items() if k != "gen"}, out["gen"].float().cpu(), grads
+
+
+def phase_train_bf16_gpu_vs_cpu():
+    """Phase 13a: one bf16 training step on the card against the CPU's bf16
+    step at phase 4's setup, within a tolerance measured on the CPU in this
+    run: the CPU's own bf16 step against its f32 step, times
+    BF16_STEP_FACTOR (loss terms, at least one bf16 rounding of each;
+    generated frames; each gradient tensor's max |dg| over its max |g|, by
+    median and 90th percentile over the tensors). Every gradient finite and
+    f32."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    cfg = small_cfg(losses=True)
+    on_cpu, _, batch = _trainer_pair_step(cfg, SEED + 20, n_gpu=0)
+    weights = {k: v.clone() for k, v in on_cpu.model.state_dict().items()}
+
+    def trainer(device, dtype):
+        return Trainer(cfg, device=device, generator=torch.Generator().manual_seed(SEED + 21),
+                       weights={k: v.clone() for k, v in weights.items()}, compute_dtype=dtype)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random VGG19's warning
+        cpu32 = _step_grads(trainer("cpu", None), batch)
+        cpu16 = _step_grads(trainer("cpu", torch.bfloat16), batch)
+        gpu_trainer = trainer("cuda", torch.bfloat16)
+        gpu16 = _step_grads(gpu_trainer, batch)
+    check(all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
+              for p in gpu_trainer.model.parameters()), "bf16 masters or grads not f32")
+    check(all(torch.isfinite(g).all() for g in gpu16[2].values()), "a bf16 gradient not finite")
+
+    # the tensors whose f32 gradient is not ~0 (not the biases BatchNorm follows)
+    names = [n for n, w in cpu32[2].items() if float(w.abs().max()) >= 1e-5]
+
+    def rel_errs(got, want):
+        return {n: float((got[n] - want[n]).abs().max()) / float(want[n].abs().max())
+                for n in names}
+
+    terms = {}
+    for k, want in cpu16[0].items():
+        # the CPU's own bf16-to-f32 distance, or one bf16 rounding of the
+        # term where that distance is smaller by chance
+        tol = max(BF16_STEP_FACTOR * abs(want - cpu32[0][k]), 2.0 ** -8 * abs(want))
+        err = abs(gpu16[0][k] - want)
+        terms[k] = (gpu16[0][k], want, cpu32[0][k], err, tol)
+        check(np.isfinite(gpu16[0][k]) and err <= tol, f"bf16 step loss {k}: {terms[k]}")
+    gen_err = float((gpu16[1] - cpu16[1]).abs().max())
+    gen_tol = BF16_STEP_FACTOR * float((cpu16[1] - cpu32[1]).abs().max())
+    check(gen_err <= gen_tol, f"bf16 step generated frames: {gen_err} > {gen_tol}")
+    card, policy = rel_errs(gpu16[2], cpu16[2]), rel_errs(cpu16[2], cpu32[2])
+
+    def summary(errs):
+        v = list(errs.values())
+        return {"median": float(np.median(v)), "p90": float(np.percentile(v, 90)),
+                "max": [max(v), max(errs, key=errs.get)]}
+
+    stats = {"card_vs_cpu_bf16": summary(card), "cpu_bf16_vs_f32": summary(policy)}
+    print("phase13a train bf16 gpu-vs-cpu 64 px: " + json.dumps({
+        "terms (gpu, cpu bf16, cpu f32, err, tol)": terms, "generated": [gen_err, gen_tol],
+        "grad max|dg|/max|g| over tensors": stats, "tensors": len(names)}))
+    # a single tensor's distance is noise-dominated under bf16 (see above):
+    # the gate is on the median and the 90th percentile over tensors
+    for what in ("median", "p90"):
+        check(stats["card_vs_cpu_bf16"][what]
+              <= BF16_STEP_FACTOR * stats["cpu_bf16_vs_f32"][what],
+              f"bf16 gradients on the card, {what} over tensors: {stats}")
+
+
+def phase_train_bf16_full_width(kernels, card):
+    """Phase 13b: `Trainer(vox1, compute_dtype=bf16)` at full width, batch
+    10, phase 5's warm-up and timed steps: ms/step, samples/s, peak memory,
+    the launches a step (PER_STEP); every parameter moves and its gradient
+    and Adam moments are f32. Returns (trainer, a batch, launches, result)."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(SEED)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random VGG19's warning
+        trainer = Trainer(vox1_cfg(), generator=torch.Generator().manual_seed(SEED),
+                          compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    batches = [{k: smooth_frames(TRAIN_BATCH, FRAME_SIZE, gen, "cuda")
+                for k in ("source", "driving")} for _ in range(n_steps)]
+    params = trainer.optimizer.param_groups[0]["params"]
+    before = [p.detach().clone() for p in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    losses = [trainer.step(b) for b in batches[:TRAIN_WARMUP_STEPS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [trainer.step(b) for b in batches[TRAIN_WARMUP_STEPS:]]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    for name, per_step in PER_STEP.items():
+        check(launches[name] == per_step * n_steps,
+              f"bf16 {name} launches {launches[name]} != {per_step} x {n_steps} steps")
+    for out in losses:
+        check(all(np.isfinite(out[k]) for k in out if k != "gen"), f"non-finite loss {out}")
+    moved = sum(float((p.detach() - q).abs().max() > 0) for p, q in zip(params, before))
+    check(moved == len(before), f"bf16: only {moved} of {len(before)} parameter tensors moved")
+    check(all(p.dtype == torch.float32 for p in trainer.model.parameters()), "masters not f32")
+    check(all(p.grad.dtype == torch.float32 for p in trainer.model.parameters()
+              if p.grad is not None), "bf16 training: a gradient is not f32")
+    check(all(v.dtype == torch.float32 for st in trainer.optimizer.state.values()
+              for v in st.values() if torch.is_tensor(v) and v.dim() > 0),
+          "bf16 training: an Adam moment is not f32")
+    result = {
+        "phase": "train_bf16_full_width", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+        "batch": TRAIN_BATCH, "dtype": "bfloat16 policy, f32 masters", "tf32": False,
+        "card": card, "steps_timed": TRAIN_TIMED_STEPS,
+        "ms_per_step": elapsed / TRAIN_TIMED_STEPS * 1e3,
+        "samples_per_s": TRAIN_BATCH * TRAIN_TIMED_STEPS / elapsed,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "loss_first": losses[0]["loss"], "loss_last": losses[-1]["loss"],
+    }
+    print("phase13b " + json.dumps(result))
+    return trainer, batches[-1], launches, result
+
+
+def phase_learning_bf16(card):
+    """Phase 13c: phase 6's 20 steps on one fixed batch, f32 and bf16 from
+    the same weights: both losses fall, and the bf16 run's mean loss over
+    its last LEARN_TAIL steps within BF16_LEARN_GATE of the f32 run's."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    cfg = small_cfg(losses=True)
+    cfg["train_params"]["lr"] = 1e-3
+    torch.manual_seed(SEED + 40)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        weights = Trainer(cfg, device="cpu").model.state_dict()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+        batch = {k: smooth_frames(2, 64, gen, "cuda") for k in ("source", "driving")}
+        runs = {}
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            trainer = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 41),
+                              weights={k: v.clone() for k, v in weights.items()},
+                              compute_dtype=dtype)
+            runs[label] = [trainer.step(batch)["loss"] for _ in range(LEARN_STEPS)]
+    drops = {k: 1.0 - float(np.mean(v[-3:])) / float(np.mean(v[:3])) for k, v in runs.items()}
+    tail = {k: float(np.mean(v[-LEARN_TAIL:])) for k, v in runs.items()}
+    gap = abs(tail["bf16"] - tail["f32"]) / tail["f32"]
+    print("phase13c learning f32 vs bf16: " + json.dumps(
+        {"card": card, "drop": drops, "tail_mean": tail, "tail_rel_gap": gap, "gate": BF16_LEARN_GATE,
+         "losses": {k: [round(x, 5) for x in v] for k, v in runs.items()}}))
+    for label, losses in runs.items():
+        check(all(np.isfinite(v) for v in losses), f"{label}: non-finite loss")
+        check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"{label}: the loss did not fall")
+    check(gap <= BF16_LEARN_GATE, f"bf16 learning: tail loss {gap:.3f} from f32's")
+
+
+FFT_CONV = re.compile(r"fft|_cf32|_cbf16|_cf16")  # the transforms, and their complex GEMMs
+
+
+def fft_share(by_name) -> float:
+    """The share of device time in cuDNN's FFT-based convolution: its
+    transforms (`fft` in the name) and the complex GEMMs between them (the
+    tiled `..._cf32cf32_...` kernels; no other path runs a complex GEMM)."""
+    busy = sum(t for t, _ in by_name.values())
+    return sum(t for name, (t, _) in by_name.items() if FFT_CONV.search(name)) / max(busy, 1e-9)
+
+
+def phase_profiling(trainer, batch, work: Path, f32_fft: float, card: str):
+    """Phase 16: `utils.profiling` on the card: `StepTimer` against CUDA
+    events over 3 bf16 training steps (one warm-up): within 5%; then `trace`
+    around 2 steps, each in an `annotate("train_step")` span (the trace must
+    hold the spans and the port's kernels, in bf16), and the FFT-convolution
+    share of the bf16 step's busy time beside the f32 step's (phase 8). The
+    timer runs first: timed after the trace, with its ~115 MB of parsed
+    events alive, the host-bound steps ran 1.8-6x slower (PERF.md)."""
+    import torch
+
+    from mrfa_tpu_torch.utils import profiling
+
+    timer = profiling.StepTimer(warmup=1, device="cuda")
+    event_ms = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timer:
+            start.record()
+            trainer.step(batch)
+            end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+    events_mean = float(np.mean(event_ms[1:])) / 1e3
+    rel = abs(timer.mean_step_time - events_mean) / events_mean
+    print(f"phase16 StepTimer: {timer.steps_timed} steps, mean {timer.mean_step_time * 1e3:.3f} "
+          f"ms, CUDA events {events_mean * 1e3:.3f} ms, rel {rel:.4f} (tol 0.05); "
+          f"{timer.throughput(TRAIN_BATCH):.3f} samples/s; {card}")
+    check(timer.steps_timed == 2 and rel <= 0.05, f"StepTimer vs CUDA events: {rel}")
+
+    logdir = work / "trace"
+    with profiling.trace(str(logdir)):
+        for _ in range(2):
+            with profiling.annotate("train_step"):
+                trainer.step(batch)
+    events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "train_step"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + e["dur"], c + 1)
+    names = list(by_name)
+    ported = {k: [n for n in names if f"{k}<" in n]
+              for k in ("corr_lookup_kernel", "corr_lookup_bwd_kernel", "splat_accumulate_kernel")}
+    in_bf16 = {k: any("bfloat16" in n for n in v) for k, v in ported.items()}
+    share = fft_share(by_name)
+    busy = sum(t for t, _ in by_name.values())
+    window = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+    print("phase16 trace: " + json.dumps({
+        "card": card, "train_step_spans": len(spans), "kernel_events": len(kernels),
+        "port_kernels": ported, "port_kernels_in_bf16": in_bf16,
+        "busy_ms_per_step": busy / 2 / 1e3, "window_ms_per_step": window / 2 / 1e3,
+        "idle_share": 1 - busy / window,
+        "fft_share_bf16": share, "fft_share_f32_phase8": f32_fft,
+        "trace_bytes": (logdir / "trace.json").stat().st_size}))
+    check(len(spans) >= 2, f"the trace holds {len(spans)} train_step spans")
+    check(all(ported.values()), f"the trace lacks a port kernel: {ported}")
+    check(all(in_bf16.values()), f"a port kernel did not run in bf16: {ported}")
+    return share
+
+
+class WaitTimed:
+    """A BatchLoader whose epochs record the seconds the consumer waited for
+    each batch (the loop's time blocked on the data path)."""
+
+    def __init__(self, loader_cls, waits):
+        self.loader_cls, self.waits = loader_cls, waits
+
+    def __call__(self, *args, **kwargs):
+        loader = self.loader_cls(*args, **kwargs)
+        epoch, waits = loader.epoch, self.waits
+
+        def timed(*a, **k):
+            batches = epoch(*a, **k)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(batches)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield batch
+            finally:
+                batches.close()
+
+        loader.epoch = timed
+        return loader
+
+
+def write_png_dataset(root: Path) -> float:
+    """train/ and test/ of PNG frame directories at 256 px (smooth frames
+    from the seed), written by the port's writer; returns the seconds."""
+    from mrfa_tpu_torch.utils.video import save_image
+
+    t0 = time.perf_counter()
+    for split, n, seed in (("train", DATA_CLIPS, SEED + 80), ("test", DATA_TEST_CLIPS, SEED + 81)):
+        clips = smooth_clips(n, DATA_FRAMES, FRAME_SIZE, seed)
+        for i, clip in enumerate(clips):
+            d = root / split / f"id{i:03d}#{i}"
+            d.mkdir(parents=True)
+            for t, frame in enumerate(clip):
+                save_image(str(d / f"{t:04d}.png"), (255 * frame).round().astype(np.uint8))
+    return time.perf_counter() - t0
+
+
+def phase_data_from_files(kernels, card, work: Path):
+    """Phase 14: the data path from files. The host codec's build (or why it
+    does not build), a PNG dataset written by the port, `FramesDataset` +
+    `BatchLoader` samples/s with the config's workers, then `loop.train` on
+    vox1 (TokenPose cut to 2 layers, as phase 10b) with `compute_dtype:
+    bf16`, 2 epochs of DATA_STEPS steps from the files: ms/step and the
+    seconds a step waits on the loader, beside one epoch on in-memory clips
+    in the same call; the decoder counts; and a resume of epoch 1 from the
+    epoch-0 checkpoint. Returns the launch counts of each run."""
+    import shutil
+
+    import torch
+
+    from mrfa_tpu_torch import native
+    from mrfa_tpu_torch.data import dataset as data
+    from mrfa_tpu_torch.train import loop
+
+    import importlib.util
+
+    headers = {h: Path(h).exists() for h in HEADERS}
+    t0 = time.perf_counter()
+    available = native.available()
+    print("phase14 codec: " + json.dumps({
+        "headers": headers, "available": available, "load_or_build_s": time.perf_counter() - t0,
+        "build_error": native.build_error(),
+        "host_image_packages": {m: importlib.util.find_spec(m) is not None
+                                for m in ("imageio", "cv2", "PIL")}}))
+    if not available:
+        print("phase14 codec: not built on this machine; PNG frames are decoded by "
+              "utils.video.decode_png (native decode on the card: not measured)")
+    root = work / "pngdata"
+    write_s = write_png_dataset(root)
+    cfg = run_config("vox1")
+    cfg["mtia_kp_detector"]["MODEL"]["TRANSFORMER_DEPTH"] = 2
+    cfg["dataset_params"]["root_dir"] = str(root)
+    cfg["train_params"].update(batch_size=TRAIN_BATCH, num_epochs=2, num_repeats=1,
+                               checkpoint_freq=1, compute_dtype="bf16")
+    workers = cfg["train_params"].get("num_workers", 4)  # the loop's default, as in vox1.yaml
+    dataset = data.FramesDataset(is_train=True, seed=SEED, **cfg["dataset_params"])
+    loader = data.BatchLoader(dataset, TRAIN_BATCH, seed=SEED, num_workers=workers)
+    data.DECODED.reset()
+    t0 = time.perf_counter()
+    n = sum(len(b["name"]) for b in loader.epoch(0))
+    load_s = time.perf_counter() - t0
+    decoded = data.DECODED.counts()
+    check(n == (DATA_CLIPS // TRAIN_BATCH) * TRAIN_BATCH, f"loader gave {n} samples")
+    check(sum(decoded.values()) == 2 * n, f"decoder counts {decoded} for {n} samples")
+    loader_result = {"samples": n, "seconds": load_s, "samples_per_s": n / load_s,
+                     "num_workers": workers, "decoded": decoded, "write_s": write_s,
+                     "frames_written": (DATA_CLIPS + DATA_TEST_CLIPS) * DATA_FRAMES}
+    print("phase14 loader " + json.dumps(loader_result))
+
+    waits, plain = [], loop.BatchLoader
+    loop.BatchLoader = WaitTimed(plain, waits)
+    runs = {}
+    try:
+        for label, ds, log, ckpt, steps in (
+            ("files", lambda: data.FramesDataset(is_train=True, seed=SEED,
+                                                 **cfg["dataset_params"]), "files", None, 2),
+            ("memory", lambda: ClipDataset(smooth_clips(DATA_CLIPS, 2, FRAME_SIZE, SEED + 82),
+                                           True), "memory", None, 1),
+        ):
+            run_cfg = json.loads(json.dumps(cfg))
+            run_cfg["train_params"]["num_epochs"] = steps
+            waits.clear()
+            data.DECODED.reset()
+            trainer, launches, epochs, peak, seconds = _run_loop(
+                kernels, run_cfg, ds(), work / log, max_steps=DATA_STEPS)
+            _check_launches(launches, steps * DATA_STEPS, f"loop from {label}")
+            check(trainer.model.compute_dtype == torch.bfloat16, "the loop did not train in bf16")
+            runs[label] = {"epoch_lines": epochs, "ms_per_step_last_epoch":
+                           epochs[-1][2] / epochs[-1][1] * 1e3, "loader_wait_s": list(waits),
+                           "loader_wait_s_per_step_after_first": float(np.mean(waits[1:])),
+                           "peak_memory_bytes": peak, "seconds": seconds,
+                           "decoded": data.DECODED.counts(), "launches": launches}
+            if label == "files":
+                straight = {k: v.detach().clone() for k, v in trainer.model.named_parameters()}
+            del trainer
+            torch.cuda.empty_cache()
+        shutil.copytree(work / "files" / "ckpt" / "0", work / "resume" / "ckpt" / "0")
+        data.DECODED.reset()
+        resumed, resume_launches, resume_epochs, _, _ = _run_loop(
+            kernels, cfg, data.FramesDataset(is_train=True, seed=SEED, **cfg["dataset_params"]),
+            work / "resume", str(work / "resume" / "ckpt"), max_steps=DATA_STEPS)
+    finally:
+        loop.BatchLoader = plain
+    _check_launches(resume_launches, DATA_STEPS, "loop from files, resumed")
+    check([e[:2] for e in resume_epochs] == [(1, DATA_STEPS)], f"resumed {resume_epochs}")
+    check(resumed.steps == 2 * DATA_STEPS, f"resumed step count {resumed.steps}")
+    diff = max(float((p.detach() - straight[n]).abs().max())
+               for n, p in resumed.model.named_parameters())
+    check(np.isfinite(diff), "the resumed parameters are not finite")
+    decoded = runs["files"]["decoded"]
+    want = {"native": 2 * TRAIN_BATCH * 2 * DATA_STEPS} if available else {
+        "png": 2 * TRAIN_BATCH * 2 * DATA_STEPS}
+    check({k: v for k, v in decoded.items() if v} == want, f"decoders {decoded}, want {want}")
+    result = {"phase": "data_from_files", "config": "config/vox1.yaml mtia, TokenPose depth 2, "
+              "compute_dtype bf16", "card": card, "batch": TRAIN_BATCH, "codec": available,
+              "loader": loader_result, "runs": runs, "resumed_epochs": resume_epochs,
+              "resumed_vs_straight_params_max_abs": diff}
+    print("phase14 " + json.dumps(result))
+    del resumed
+    torch.cuda.empty_cache()
+    return {"loop_files_bf16": runs["files"]["launches"],
+            "loop_memory_bf16": runs["memory"]["launches"],
+            "loop_files_bf16_resumed": resume_launches}
+
+
+def phase_clis(kernels, card, work: Path):
+    """Phase 15: the CLIs at full width. `cli/convert_backbones` on random
+    torchvision-shaped VGG19 / VGG16 / LPIPS state dicts, the files read
+    back by `weights/` (the VGG19 overlay and LPIPS); `cli/convert` on a
+    reference-format `.pth` of config/vox1.yaml's model (tests/torch_parity's
+    writer, random weights from the seed); `cli/demo` from the converted
+    checkpoint on a 512 px PNG source and a PNG strip of DEMO_FRAMES driving
+    frames at 256 px, with `--relative --adapt_scale`, then with
+    `--find_best_frame`: frames/s, 6 lookups a frame, the frames equal to
+    `Animator.make_animation`'s on the same inputs, the video written (a PNG
+    frame directory where no video writer is installed). Returns the launch
+    counts of each demo run."""
+    import torch
+
+    from mrfa_tpu_torch import evals
+    from mrfa_tpu_torch import weights as W
+    from mrfa_tpu_torch.animate import Animator
+    from mrfa_tpu_torch.cli import convert, convert_backbones, demo
+    from mrfa_tpu_torch.data.dataset import read_image, read_video
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.utils.checkpoint import restore_checkpoint
+    from mrfa_tpu_torch.utils.video import save_image
+
+    # convert_backbones, and the weights module reading its files
+    helpers = parity_helpers()
+    paths = helpers.torchvision_backbone_files(str(work), seed=SEED + 90)
+    t0 = time.perf_counter()
+    convert_backbones.main([f"--{k}={v}" for k, v in paths.items()]
+                           + [f"--out_dir={work / 'weights'}"])
+    backbones_s = time.perf_counter() - t0
+    files = (W.VGG19_FILE, W.LPIPS_FILE)
+    W.VGG19_FILE = str(work / "weights" / Path(files[0]).name)
+    W.LPIPS_FILE = str(work / "weights" / Path(files[1]).name)
+    try:
+        torch.manual_seed(SEED)
+        model = MRFA(vox1_cfg())
+        check(W.overlay_vgg19(model), "weights/ did not read the converted VGG19")
+        vgg19 = torch.load(paths["vgg19"], weights_only=True)
+        check(torch.equal(model.vgg.features_28.weight.cpu(), vgg19["features.28.weight"]),
+              "the overlaid VGG19 differs from the torchvision state dict")
+        lpips = evals._lpips_module(W.lpips_variables(), torch.device("cuda"))
+        x = torch.rand(1, 3, 64, 64, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        lpips_value = float(lpips(x, x.flip(-1)).mean())
+        check(np.isfinite(lpips_value), "LPIPS on the converted weights is not finite")
+    finally:
+        W.VGG19_FILE, W.LPIPS_FILE = files
+    del model
+
+    # convert, then the demo on the converted checkpoint
+    cfg = run_config("vox1")
+    config_path, pth, _ = helpers.write_cli_inputs(str(work), cfg=cfg, seed=SEED)
+    t0 = time.perf_counter()
+    missing, unexpected = convert.main([f"--config={config_path}", f"--checkpoint={pth}",
+                                        f"--out={work / 'converted'}"])
+    convert_s = time.perf_counter() - t0
+    check(not missing and not unexpected, f"convert: missing {missing}, unused {unexpected}")
+    gen = torch.Generator().manual_seed(SEED + 91)
+    source = (255 * smooth_frames(1, 2 * FRAME_SIZE, gen, "cpu")[0].numpy()).round()
+    save_image(str(work / "source.png"), source.astype(np.uint8))
+    driving = (255 * smooth_clips(1, DEMO_FRAMES, FRAME_SIZE, SEED + 92)[0]).round()
+    save_image(str(work / "driving.png"), np.concatenate(list(driving.astype(np.uint8)), axis=1))
+    args = [f"--config={config_path}", f"--checkpoint={work / 'converted'}",
+            f"--source_image={work / 'source.png'}", f"--driving_video={work / 'driving.png'}",
+            "--relative", "--adapt_scale"]
+    runs, launches = {}, {}
+    for label, extra in (("demo", []), ("demo_best_frame", ["--find_best_frame"])):
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames, written = demo.main(args + extra + [f"--result_video={work / label}.mp4"])
+        seconds = time.perf_counter() - t0
+        launches[label] = launch_counts(kernels)
+        n_frames = DEMO_FRAMES + (label == "demo_best_frame")  # the best frame twice
+        check(len(frames) == DEMO_FRAMES, f"{label}: {len(frames)} frames")
+        check(launches[label]["corr_lookup"] == 6 * n_frames,
+              f"{label}: {launches[label]['corr_lookup']} lookups for {n_frames} frame steps")
+        out = Path(written)
+        check(out.exists(), f"{label} wrote nothing at {written}")
+        runs[label] = {"frames": len(frames), "seconds": seconds,
+                       "frames_per_s": len(frames) / seconds, "written": out.name,
+                       "written_png_frames": len(list(out.glob("*.png"))) if out.is_dir() else None,
+                       "written_bytes": out.stat().st_size if out.is_file() else None,
+                       "lookups": launches[label]["corr_lookup"]}
+        if label == "demo":
+            state, _ = restore_checkpoint(str(work / "converted"))
+            model = MRFA(cfg)
+            animator = Animator(model, state["trainer"]["model"])
+            want = animator.make_animation(
+                demo.resize_frame(read_image(str(work / "source.png")), (FRAME_SIZE,) * 2),
+                np.stack(list(read_video(str(work / "driving.png")))), adapt_movement_scale=True)
+            err = max(float(np.abs(g - w).max()) for g, w in zip(frames, want))
+            runs[label]["max_abs_vs_make_animation"] = err
+            check(err <= 1e-5, f"demo frames differ from Animator.make_animation's: {err}")
+            del animator, model
+        check(all(np.isfinite(f).all() and f.shape == (FRAME_SIZE, FRAME_SIZE, 3)
+                  for f in frames), f"{label}: frames not finite or of another shape")
+    result = {"phase": "clis", "config": "config/vox1.yaml mtia", "card": card,
+              "convert_backbones_s": backbones_s, "lpips_on_converted": lpips_value,
+              "convert_s": convert_s, "pth_bytes": Path(pth).stat().st_size, "runs": runs}
+    print("phase15 " + json.dumps(result))
+    torch.cuda.empty_cache()
+    return launches
+
 
 
 def main() -> int:
@@ -2064,8 +2619,8 @@ def main() -> int:
     stamp("phase 9")
     times, sums = phase_timing(kernels, device)
     stamp("phase 7")
-    phase_profile([("serving", animator, state), ("serving_bf16", bf16_animator, bf16_state)],
-                  clip[2], trainer, batch)
+    f32_fft = phase_profile([("serving", animator, state),
+                             ("serving_bf16", bf16_animator, bf16_state)], clip[2], trainer, batch)
     stamp("phase 8")
     del trainer, batch, animator, state, bf16_animator, bf16_state
     torch.cuda.empty_cache()
@@ -2109,6 +2664,26 @@ def main() -> int:
     for prior in ("fomm", "tpsm"):
         paths.update(phase_prior(kernels, card, clip, prior))
     stamp("phase 12b")
+    del clip
+    torch.cuda.empty_cache()
+    phase_train_bf16_gpu_vs_cpu()
+    stamp("phase 13a")
+    trainer, batch, paths["training_bf16"], _ = phase_train_bf16_full_width(kernels, card)
+    stamp("phase 13b")
+    work = Path(tempfile.mkdtemp(prefix="smoke_run_", dir=build))
+    try:
+        phase_profiling(trainer, batch, work, f32_fft, card)
+        del trainer, batch
+        torch.cuda.empty_cache()
+        stamp("phase 16")
+        phase_learning_bf16(card)
+        stamp("phase 13c")
+        paths.update(phase_data_from_files(kernels, card, work))
+        stamp("phase 14")
+        paths.update(phase_clis(kernels, card, work))
+        stamp("phase 15")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
     big = TRAIN_LOOKUP_BQS[-1]

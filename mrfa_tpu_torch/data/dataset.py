@@ -9,8 +9,12 @@ Counterpart of mrfa_tpu/data/dataset.py (the reference's frames_dataset.py):
     animation pairs; BatchLoader for batches in a deterministic order.
 
 Images are float32 in [0, 1], HWC, and batches NHWC numpy arrays; `Trainer`
-copies them to the card. Images are decoded by `imageio`, imported when an
-image is read.
+copies them to the card. Frames are decoded as the JAX package decodes them:
+a frame directory of PNG/JPEG files goes through the host codec
+(`mrfa_tpu_torch.native`) at its first frame's size when the codec is built;
+otherwise, and for a PNG strip, each PNG goes through the port's own reader
+(`utils.video.decode_png`) and anything else through `imageio`, imported
+when such a file is read. `DECODED` counts the frames each decoder served.
 """
 from __future__ import annotations
 
@@ -19,9 +23,38 @@ import glob
 import os
 import queue as queue_mod
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from mrfa_tpu_torch import native
+from mrfa_tpu_torch.utils.video import UnsupportedPNG, decode_png
+
+FRAME_EXTENSIONS = (".png", ".jpg", ".jpeg")
+DECODERS = ("native", "png", "imageio")
+
+
+class DecoderCounts:
+    """The frames each decoder served, counted from any thread."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts = dict.fromkeys(DECODERS, 0)
+
+    def add(self, decoder: str, frames: int = 1) -> None:
+        with self._lock:
+            self._counts[decoder] += frames
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = dict.fromkeys(DECODERS, 0)
+
+
+DECODED = DecoderCounts()
 
 
 def _imageio():
@@ -42,18 +75,45 @@ def img_as_float32(img: np.ndarray) -> np.ndarray:
 
 
 def _ensure_rgb(img: np.ndarray) -> np.ndarray:
+    """Gray, gray + alpha, RGB or RGBA -> RGB (alpha dropped)."""
     if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    if img.shape[-1] == 1:
-        img = np.repeat(img, 3, axis=-1)
+        img = img[..., None]
+    if img.shape[-1] in (1, 2):
+        img = np.repeat(img[..., :1], 3, axis=-1)
     if img.shape[-1] == 4:
         img = img[..., :3]
     return img
 
 
-def _read_frames(paths) -> list:
-    imageio = _imageio()
-    return [img_as_float32(_ensure_rgb(imageio.imread(p))) for p in paths]
+def read_image(path: str) -> np.ndarray:
+    """One image file -> (H, W, 3) float32 in [0, 1]: a PNG through
+    `decode_png` (imageio only for the PNGs it does not read: palette,
+    16-bit, interlaced), any other file through imageio."""
+    if path.lower().endswith(".png"):
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            img = decode_png(data)
+            DECODED.add("png")
+            return img_as_float32(_ensure_rgb(img))
+        except UnsupportedPNG:
+            pass
+    img = _imageio().imread(path)
+    DECODED.add("imageio")
+    return img_as_float32(_ensure_rgb(img))
+
+
+def _read_frames(paths: List[str]) -> list:
+    """Frames of one video, each (H, W, 3) float32: all at once through the
+    host codec at the first frame's size when every file is a PNG or JPEG
+    and the codec is built (JAX dataset.py's route), else one by one."""
+    if paths and all(p.lower().endswith(FRAME_EXTENSIONS) for p in paths) and native.available():
+        size = native.image_size(paths[0])
+        batch = None if size is None else native.decode_batch(paths, *size, n_threads=4)
+        if batch is not None:
+            DECODED.add("native", len(paths))
+            return list(batch)
+    return [read_image(p) for p in paths]
 
 
 def read_video(name: str, frame_shape=(256, 256, 3), read_first_frame: bool = False) -> np.ndarray:
@@ -64,7 +124,9 @@ def read_video(name: str, frame_shape=(256, 256, 3), read_first_frame: bool = Fa
         return np.array(_read_frames([os.path.join(name, frames[i]) for i in range(count)]))
     lower = name.lower()
     if lower.endswith((".png", ".jpg")):
-        image = _ensure_rgb(img_as_float32(_imageio().imread(name)))
+        # a strip is read as the JAX package reads it (not through the codec,
+        # whose float conversion differs from imageio's in the last bit)
+        image = read_image(name)
         video = np.moveaxis(image, 1, 0)
         video = video.reshape((-1,) + tuple(frame_shape))
         return np.moveaxis(video, 1, 2)

@@ -126,6 +126,43 @@ class MRFA(nn.Module):
     def pyramid(self, x: torch.Tensor) -> Dict[float, torch.Tensor]:
         return {s: antialias_downsample(x, s) for s in self.scales}
 
+    def perceptual_loss(self, driving: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
+        """The weighted L1 distance of VGG19 features over the image pyramid;
+        under the bf16 policy each term is a bf16 mean and the sum stays
+        bf16 (as the JAX package's `0.0 + w * mean`)."""
+        pyr_real = self.pyramid(driving)
+        pyr_gen = self.pyramid(gen)
+        total = 0.0
+        for s in self.scales:
+            x_feats = self.vgg(pyr_gen[s])
+            with torch.no_grad():  # the real branch is a constant
+                y_feats = self.vgg(pyr_real[s])
+            for i, weight in enumerate(self.loss_weights["perceptual"]):
+                total = total + weight * torch.mean(torch.abs(x_feats[i] - y_feats[i]))
+        return total
+
+    def equivariance_losses(self, kp_d: Dict[str, torch.Tensor],
+                            transformed_kp: Dict[str, torch.Tensor],
+                            transform: RandomTransformParams) -> Dict[str, torch.Tensor]:
+        """The keypoint equivariance loss and, where the config weighs it and
+        the encoder makes jacobians, the jacobian one, from the driving
+        keypoints and those of the driving frame under `transform`. The
+        transform's f32 promotes bf16 keypoints, so both are f32."""
+        weights = self.loss_weights
+        warped_back = random_transform_warp(transform, transformed_kp["kp"])
+        out = {"equivariance": weights["equivariance"] * torch.mean(
+            torch.abs(kp_d["kp"] - warped_back))}
+        if weights.get("equivariance_jacobian", 0) != 0 and "jacobian" in kp_d:
+            t_jac = random_transform_jacobian(transform, transformed_kp["kp"])
+            jacobian_transformed = torch.matmul(t_jac, transformed_kp["jacobian"])
+            # inv_ex: no host sync for the singularity check (as jnp.linalg.inv)
+            inv_d = torch.linalg.inv_ex(kp_d["jacobian"]).inverse
+            value = torch.matmul(inv_d, jacobian_transformed)
+            eye = torch.eye(2, dtype=value.dtype, device=value.device)
+            out["equivariance_jacobian"] = weights["equivariance_jacobian"] * torch.mean(
+                torch.abs(eye - value))
+        return out
+
     def forward(
         self,
         source: torch.Tensor,
@@ -170,16 +207,7 @@ class MRFA(nn.Module):
 
         weights = self.loss_weights
         if sum(weights.get("perceptual", [0])) != 0:
-            pyr_real = self.pyramid(driving)
-            pyr_gen = self.pyramid(gen)
-            total = 0.0
-            for s in self.scales:
-                x_feats = self.vgg(pyr_gen[s])
-                with torch.no_grad():  # the real branch is a constant
-                    y_feats = self.vgg(pyr_real[s])
-                for i, weight in enumerate(weights["perceptual"]):
-                    total = total + weight * torch.mean(torch.abs(x_feats[i] - y_feats[i]))
-            losses["perceptual"] = total
+            losses["perceptual"] = self.perceptual_loss(driving, gen)
 
         if weights.get("equivariance", 0) != 0:
             if transform is None:
@@ -187,20 +215,7 @@ class MRFA(nn.Module):
                     None, driving.shape[0], **self.transform_params, device=driving.device
                 )
             transformed_kp = self.encode_kp(random_transform_frame(transform, driving))
-            warped_back = random_transform_warp(transform, transformed_kp["kp"])
-            losses["equivariance"] = weights["equivariance"] * torch.mean(
-                torch.abs(kp_d["kp"] - warped_back)
-            )
-            if weights.get("equivariance_jacobian", 0) != 0 and "jacobian" in kp_d:
-                t_jac = random_transform_jacobian(transform, transformed_kp["kp"])
-                jacobian_transformed = torch.matmul(t_jac, transformed_kp["jacobian"])
-                # inv_ex: no host sync for the singularity check (as jnp.linalg.inv)
-                inv_d = torch.linalg.inv_ex(kp_d["jacobian"]).inverse
-                value = torch.matmul(inv_d, jacobian_transformed)
-                eye = torch.eye(2, dtype=value.dtype, device=value.device)
-                losses["equivariance_jacobian"] = weights["equivariance_jacobian"] * torch.mean(
-                    torch.abs(eye - value)
-                )
+            losses.update(self.equivariance_losses(kp_d, transformed_kp, transform))
 
         if use_bg:
             value = torch.matmul(bg_param, self.bg_predictor(driving, source))

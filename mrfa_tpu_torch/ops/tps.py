@@ -106,9 +106,12 @@ def _bump(params: RandomTransformParams, coords: torch.Tensor) -> torch.Tensor:
 
 
 def random_transform_warp(params: RandomTransformParams, coords: torch.Tensor) -> torch.Tensor:
-    """Warp coordinates (B or 1, M, 2) -> (B, M, 2)."""
+    """Warp coordinates (B or 1, M, 2) -> (B, M, 2), in the promoted dtype of
+    coordinates and transform (bf16 keypoints are warped in f32, as JAX's
+    promotion does)."""
     theta = params.theta
     coords = coords.expand(theta.shape[0], *coords.shape[1:])
+    coords = coords.to(torch.promote_types(coords.dtype, theta.dtype))
     out = torch.einsum("bij,bmj->bmi", theta[:, :, :2], coords) + theta[:, None, :, 2]
     if params.control_points is not None:
         out = out + _bump(params, coords)[:, :, None]
@@ -130,6 +133,7 @@ def random_transform_jacobian(params: RandomTransformParams, coords: torch.Tenso
 
     b = params.theta.shape[0]
     coords = coords.expand(b, *coords.shape[1:])
+    coords = coords.to(torch.promote_types(coords.dtype, params.theta.dtype))
     has_tps = params.control_points is not None
     cps = params.control_points[0] if has_tps else None
     cpar = params.control_params[:, 0, :] if has_tps else coords.new_zeros(b, 0)

@@ -1,9 +1,9 @@
-"""Selective mixed precision for serving.
+"""Selective mixed precision, for serving and for training.
 
 Counterpart of mrfa_tpu/precision.py, with the policy an explicit argument of
-the model (`MRFA(cfg, compute_dtype=torch.bfloat16)`) rather than a
-process-wide setting; None, the default, is f32 throughout. Under the bf16
-policy:
+the model (`MRFA(cfg, compute_dtype=torch.bfloat16)`, `Trainer(cfg,
+compute_dtype=torch.bfloat16)`) rather than a process-wide setting; None,
+the default, is f32 throughout. Under the bf16 policy:
   - every convolution and dense layer computes in bf16 (input, weight and
     bias cast to it, the result kept in it), except the f32 heads below,
     which compute in the promoted dtype of input and weight, as the JAX
@@ -19,6 +19,23 @@ convolutions and dense layers a casting forward; without it (the f32
 default) they stay plain `nn.Conv2d` and `nn.Linear`.
 `cast_params_for_inference` casts the same parameters the JAX function
 casts, once, so that the per-call cast of each weight is a no-op.
+
+In the training forward the policy reaches, as it does in the JAX step:
+  - the perceptual loss's VGG19 (its convolutions are the same casting
+    layers): its features are bf16, each L1 term is a bf16 mean and their
+    weighted sum `0.0 + w * mean` stays bf16;
+  - the ResNet-18 trunks (the background predictor's, TPSM's detector's):
+    bf16 convolutions; their `fc` heads are f32 heads and return f32;
+  - train-mode BatchNorm: batch statistics of a bf16 input are reduced in
+    f32, the running statistics are f32 buffers updated in f32, and the
+    output is bf16;
+  - the MTIA keypoints are bf16 (the TokenPose head is not an f32 head); the
+    equivariance transforms promote them and compute in f32, so both
+    equivariance terms are f32, and the loss sum, bf16 perceptual plus f32
+    equivariance, is f32.
+The backward runs through the same casts: each cast hands its input's dtype
+back, so every parameter, the f32 master weights, gets an f32 gradient, and
+the clip and Adam see f32 only. A training model is never pre-cast.
 """
 from __future__ import annotations
 
@@ -86,8 +103,12 @@ def apply_compute_dtype(model: nn.Module, dtype: torch.dtype) -> None:
 def cast_params_for_inference(model: nn.Module, dtype=torch.bfloat16) -> List[str]:
     """Cast, in place and once, the float32 parameters of ndim >= 2 outside the
     f32 heads to `dtype` (convolution and dense kernels); biases, norm
-    scales, running statistics and the f32 heads stay f32. Inference only.
-    Returns the state_dict keys cast."""
+    scales, running statistics and the f32 heads stay f32. Inference only:
+    a model in training mode (a `Trainer`'s) keeps its f32 master weights,
+    and is refused. Returns the state_dict keys cast."""
+    if model.training:
+        raise ValueError("cast_params_for_inference: the model is in training mode; "
+                         "training keeps f32 master weights")
     cast = []
     with torch.no_grad():
         for key, p in model.named_parameters():

@@ -50,6 +50,18 @@ def epoch_phase(tp: Dict[str, Any], epoch: int) -> Tuple[bool, bool, float]:
     return use_bg, False, 0.0
 
 
+def train_compute_dtype(tp: Dict[str, Any]) -> Optional[torch.dtype]:
+    """The precision policy `train_params.compute_dtype` names (as the JAX
+    loop reads it): None for f32 (absent, "f32", "float32"), torch.bfloat16
+    for "bf16" / "bfloat16"; any other value raises."""
+    name = tp.get("compute_dtype")
+    if name in (None, "f32", "float32"):
+        return None
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"train_params.compute_dtype {name!r}: f32 or bf16")
+
+
 def is_checkpoint_epoch(epoch: int, num_epochs: int, checkpoint_freq: int) -> bool:
     return (epoch + 1) % checkpoint_freq == 0 or epoch == num_epochs - 1
 
@@ -102,8 +114,7 @@ def train(
     Trainer."""
     tp = config["train_params"]
     num_epochs = tp["num_epochs"]
-    if tp.get("compute_dtype") not in (None, "f32", "float32"):
-        raise NotImplementedError("the port trains in f32 only")
+    compute_dtype = train_compute_dtype(tp)
     if tp.get("num_repeats", 1) != 1:
         dataset = DatasetRepeater(dataset, tp["num_repeats"])
     loader = BatchLoader(dataset, batch_size=tp["batch_size"], shuffle=True, drop_last=True,
@@ -124,7 +135,8 @@ def train(
         warnings.filterwarnings("ignore", message=".*RANDOMLY INITIALIZED VGG19")
         trainer = Trainer(cfg, device=device, steps_per_epoch=steps_per_epoch,
                           generator=torch.Generator().manual_seed(seed + 1234),
-                          dropout_generator=torch.Generator().manual_seed(seed + 1235))
+                          dropout_generator=torch.Generator().manual_seed(seed + 1235),
+                          compute_dtype=compute_dtype)
     overlay_vgg19(trainer.model)
     if checkpoint is not None and checkpoint.endswith(".pth"):
         load_torch_weights_into(trainer.model, checkpoint, drop_decoder_pos_embedding=True)
@@ -158,12 +170,14 @@ def train(
               f"({n_steps * tp['batch_size'] / max(dt, 1e-9):.2f} samples/s)")
         if last is not None:
             batch, out = last
+            # bf16 under the bf16 policy: the visualizer takes f32 numpy
             rec = torch.cat([out["warp_vis"][:1], out["gen"][:1]], dim=2)
             logger.log_epoch(
                 epoch,
                 inp={"source": batch["source"][:1], "driving": batch["driving"][:1]},
-                out={"rec": rec.cpu().numpy(), "kp_s": out["kp_s"][:1].cpu().numpy(),
-                     "kp_d": out["kp_d"][:1].cpu().numpy()},
+                out={"rec": rec.float().cpu().numpy(),
+                     "kp_s": out["kp_s"][:1].float().cpu().numpy(),
+                     "kp_d": out["kp_d"][:1].float().cpu().numpy()},
             )
         else:
             logger.log_epoch(epoch)

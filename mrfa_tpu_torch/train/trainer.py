@@ -5,7 +5,12 @@ train.py): forward in train mode (BatchNorm on batch statistics, running
 statistics updated), the loss terms summed, backward, per-subtree inf-norm
 clipping, Adam and the MultiStep learning rate on the main subtrees and, in
 the background predictor's phases (`use_bg`), on `bg_predictor` as well.
-f32 throughout; the caller sets the TF32 policy (the port runs with TF32 off).
+f32 by default; under `compute_dtype=torch.bfloat16` the forward and its
+backward compute in bf16 where `precision.py`'s policy says so, while the
+parameters (the master weights), their gradients, the clip and Adam's
+moments stay f32, as in the JAX step, where optax sees f32 parameters and
+the layers cast inside the traced step. The caller sets the TF32 policy
+(the port runs with TF32 off).
 """
 from __future__ import annotations
 
@@ -36,6 +41,10 @@ class Trainer:
     model with a background predictor (`bg_start` < `num_epochs`) gets its second
     Adam group, which steps only in `use_bg` steps, so its learning-rate
     milestones count those steps (as the JAX package's `opt_state_bg`).
+    `compute_dtype` (None: f32, or torch.bfloat16) is the model's precision
+    policy; the weights are never pre-cast (`cast_params_for_inference`
+    refuses a model in training mode), so the optimizer keeps f32 masters
+    and the checkpoint tree is the f32 one.
     """
 
     def __init__(
@@ -46,11 +55,12 @@ class Trainer:
         generator: Optional[torch.Generator] = None,
         weights: Optional[Mapping[str, Any]] = None,
         dropout_generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
         tp = cfg["train_params"]
-        self.model = MRFA(cfg, device=self.device)
+        self.model = MRFA(cfg, device=self.device, compute_dtype=compute_dtype)
         if weights is not None and "params" in weights:
             load_jax_variables(self.model, weights)
         elif weights is not None:

@@ -85,8 +85,8 @@ def overlay_vgg19(model: nn.Module) -> bool:
         warnings.warn(
             f"{VGG19_FILE} not found: the perceptual loss will use a RANDOMLY "
             "INITIALIZED VGG19, which is not the reference's loss. Convert the "
-            "torchvision weights offline into that file (the JAX package's "
-            "`mrfa_tpu.cli.convert_backbones` writes the same layout).",
+            "torchvision weights offline into that file "
+            "(`python -m mrfa_tpu_torch.cli.convert_backbones`).",
             stacklevel=2,
         )
         return False

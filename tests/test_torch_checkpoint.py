@@ -17,7 +17,7 @@ from mrfa_tpu_torch.utils.checkpoint import (
 )
 from mrfa_tpu_torch.utils.convert import flax_path, load_jax_variables
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
-    loop_config, one_torch_thread, train_cfg, with_prior, write_png_videos,
+    loop_config, one_torch_thread, reference_pth, train_cfg, with_prior, write_png_videos,
 )
 
 SIZE = 64
@@ -141,7 +141,7 @@ def test_pth_import_takes_a_prior_state_dict(tmp_path, prior):
     torch.manual_seed(0)
     source = MRFA(cfg, device="cpu").state_dict()
     pth = str(tmp_path / "ref.pth")
-    _reference_pth(source, pth)
+    reference_pth(source, pth)
     torch.manual_seed(1)
     port = MRFA(cfg, device="cpu")
     init = {k: v.clone() for k, v in port.state_dict().items()}
@@ -157,29 +157,6 @@ def test_pth_import_takes_a_prior_state_dict(tmp_path, prior):
         assert torch.equal(state[key], v), key
 
 
-def _reference_pth(state, path, drop=(), extra=None):
-    """A reference-style checkpoint of a port state dict: keys under
-    `module.`, VGG19 convolutions under their slice, the anti-alias buffers
-    and the VGG19 mean/std beside the weights, and optimizer entries."""
-    from mrfa_tpu_torch.nn.vgg import _SLICE_CONVS
-
-    slice_of = {idx: k + 1 for k, convs in enumerate(_SLICE_CONVS) for idx, _ in convs}
-    sd = {}
-    for key, v in state.items():
-        if key in drop:
-            continue
-        if key.startswith("vgg.features_"):
-            idx, rest = key[len("vgg.features_"):].split(".", 1)
-            key = f"vgg.slice{slice_of[int(idx)]}.{idx}.{rest}"
-        sd["module." + key] = v.clone()
-    sd["module.pyramid.downs.0_25.weight"] = torch.ones(3, 1, 13, 13)
-    sd["module.down.weight"] = torch.ones(3, 1, 13, 13)
-    sd["module.vgg.mean"] = torch.zeros(1, 3, 1, 1)
-    sd["module.vgg.std"] = torch.ones(1, 3, 1, 1)
-    sd.update(extra or {})
-    torch.save({"model": sd, "optimizer": {"state": {}}, "epoch": 3}, path)
-
-
 @pytest.mark.parametrize("drop_pos", [False, True], ids=["all", "drop_decoder_pos_embedding"])
 def test_pth_import_matches_jax(tmp_path, drop_pos):
     from mrfa_tpu.utils.checkpoint import load_torch_weights_into as jload
@@ -193,7 +170,7 @@ def test_pth_import_matches_jax(tmp_path, drop_pos):
     missing_key = "dense_motion.mask.bias"
     wrong_shape = "encoder.transformer.keypoint_token"
     pth = str(tmp_path / "ref.pth")
-    _reference_pth(source, pth, drop=(missing_key, wrong_shape), extra={
+    reference_pth(source, pth, drop=(missing_key, wrong_shape), extra={
         "module.decoder.extra_leaf": torch.zeros(2),
         f"module.{wrong_shape}": torch.zeros(3, 3),
     })

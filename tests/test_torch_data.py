@@ -2,9 +2,11 @@
 seeds: each augmentation, `FramesDataset` over frame directories, a PNG
 strip and a GIF (train and test, with and without `id_sampling`),
 `DatasetRepeater`, `BatchLoader`'s order for one and three workers, and
-`PairedDataset` (random pairs and a CSV list). The JAX dataset reads PNG
-frames through its native codec when that is built; here it reads them
-through imageio, as the port does, so that both decode the same bytes."""
+`PairedDataset` (random pairs and a CSV list). Both datasets read PNG
+frames through their native codecs when those are built; here the JAX one
+reads them through imageio and the port's through its own PNG reader, which
+convert to float as imageio's route does (tests/test_torch_native.py holds
+the codecs against each other)."""
 import sys
 import threading
 
@@ -29,6 +31,7 @@ AUG_PARAMS = {
 @pytest.fixture(autouse=True)
 def jax_reads_through_imageio(monkeypatch):
     monkeypatch.setattr(jdata, "_read_frames_native", lambda paths: None)
+    monkeypatch.setattr(data.native, "available", lambda: False)
 
 
 def _clip(seed, n=2, size=FRAME):
@@ -108,8 +111,13 @@ def test_read_video_matches_jax_and_names_imageio_when_missing(root, monkeypatch
                   jdata.read_video(path, (FRAME, FRAME, 3), first))
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    # PNG frame directories and strips need no imageio (the port's PNG
+    # reader); a GIF does, and the error says so
+    for name in ("test/idB#1", "test/strip.png"):
+        _same(data.read_video(f"{root}/{name}", (FRAME, FRAME, 3)),
+              jdata.read_video(f"{root}/{name}", (FRAME, FRAME, 3)))
     with pytest.raises(ImportError, match="imageio"):
-        data.read_video(f"{root}/test/idB#1")
+        data.read_video(f"{root}/test/anim.gif")
 
 
 def test_dataset_repeater_matches_jax(root):

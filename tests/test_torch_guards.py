@@ -53,7 +53,9 @@ print("ok")
 
 @pytest.mark.parametrize(
     "module", ["mrfa_tpu_torch.serving", "mrfa_tpu_torch.models.kp_detector",
-               "mrfa_tpu_torch.weights"],
+               "mrfa_tpu_torch.weights", "mrfa_tpu_torch.native", "mrfa_tpu_torch.utils.profiling",
+               "mrfa_tpu_torch.cli.demo", "mrfa_tpu_torch.cli.convert",
+               "mrfa_tpu_torch.cli.convert_backbones", "mrfa_tpu_torch.data.dataset"],
 )
 def test_each_module_alone_loads_no_jax_and_no_mrfa_tpu(module):
     code = f"""
@@ -156,6 +158,36 @@ def test_trainer_raises_without_cuda_unless_cpu_is_asked(no_cuda):
         Trainer(cfg)
     with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
         assert Trainer(cfg, device="cpu").device.type == "cpu"
+
+
+def test_bf16_trainer_raises_without_cuda_unless_cpu_is_asked(no_cuda):
+    cfg = train_cfg(64, blocks=3, depth=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, compute_dtype=torch.bfloat16)
+    with pytest.warns(UserWarning, match="RANDOMLY INITIALIZED VGG19"):
+        trainer = Trainer(cfg, device="cpu", compute_dtype=torch.bfloat16)
+    assert trainer.device.type == "cpu" and trainer.model.compute_dtype == torch.bfloat16
+
+
+def test_demo_and_convert_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
+    from mrfa_tpu_torch.cli import convert, demo
+    from mrfa_tpu_torch.utils.video import save_image
+    from tests.torch_parity import write_cli_inputs
+
+    config, pth, _ = write_cli_inputs(str(tmp_path))
+    source = str(tmp_path / "driving" / "source.png")
+    (tmp_path / "driving").mkdir()
+    save_image(source, np.zeros((64, 64, 3), np.uint8))
+    demo_args = [f"--config={config}", f"--checkpoint={pth}", f"--source_image={source}",
+                 f"--driving_video={tmp_path / 'driving'}", "--img_shape=64,64",
+                 f"--result_video={tmp_path / 'out.mp4'}"]
+    convert_args = [f"--config={config}", f"--checkpoint={pth}", f"--out={tmp_path / 'ckpt'}"]
+    for main, args in ((demo.main, demo_args), (convert.main, convert_args)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(args)
+    assert convert.main(convert_args + ["--device=cpu"]) == ([], [])
+    frames, _ = demo.main(demo_args + ["--device=cpu"])
+    assert len(frames) == 1 and frames[0].shape == (64, 64, 3)
 
 
 def test_loop_evals_and_cli_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):

@@ -2,16 +2,17 @@
 
 Inputs and weights are made with numpy from a seed, run through the JAX
 module and its port counterpart on the CPU, and compared. The port runs
-NCHW; the helpers transpose at the boundary.
+NCHW; the helpers transpose at the boundary. JAX is imported by the helpers
+that use it, so that `chip_smoke.py` (no JAX on the card) can use the rest.
 """
 from __future__ import annotations
 
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 
 def nchw(x) -> torch.Tensor:
@@ -54,11 +55,15 @@ def one_torch_thread():
 
 def jax_init(module, *args, **kwargs):
     """`module.init` under jit (eager flax runs op by op, several times slower)."""
+    import jax
+
     return jax.jit(lambda key: module.init(key, *args, **kwargs))(jax.random.PRNGKey(0))
 
 
 def jax_apply(module, variables, *args, **kwargs):
     """`module.apply` under jit; the inputs are closed over as constants."""
+    import jax
+
     return jax.jit(lambda v: module.apply(v, *args, **kwargs))(variables)
 
 
@@ -68,6 +73,8 @@ def perturbed(variables, seed: int = 0):
     trivial: 1-D parameters get +0.05*N(0,1), running means N(0, 0.1^2),
     running variances U(0.5, 1.5). Kernels keep their random initialization
     (a larger one would blow activations up over the model's depth)."""
+    import jax
+
     rng = np.random.RandomState(seed)
 
     def move(path, leaf):
@@ -208,3 +215,90 @@ def write_png_videos(root, n_train=4, n_test=2, frames=5, size=64, seed=0):
             clip = smooth_image(frames, size, seed=seed + 100 * v + (split == "test"))
             for t, f in enumerate(clip):
                 save_image(os.path.join(d, f"{t:03d}.png"), (255 * f).astype(np.uint8))
+
+
+VGG_LAYERS = {  # torchvision's vgg cfgs "E" (vgg19) and "D" (vgg16): channels, "M" a pool
+    19: [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512, "M",
+         512, 512, 512, 512],
+    16: [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512],
+}
+
+
+def torchvision_backbone_files(root, seed: int = 0) -> dict:
+    """Random torchvision-shaped vgg19 and vgg16 `features` state dicts
+    (every conv at its real channel counts) and lpips `lin` weights, saved
+    under `root`: {"vgg19" | "vgg16" | "lpips_lin": path}."""
+    gen = torch.Generator().manual_seed(seed)
+    paths = {}
+    for depth in (19, 16):
+        sd, cin, idx = {}, 3, 0
+        for v in VGG_LAYERS[depth]:
+            if v == "M":
+                idx += 1
+                continue
+            sd[f"features.{idx}.weight"] = 0.01 * torch.randn(v, cin, 3, 3, generator=gen)
+            sd[f"features.{idx}.bias"] = 0.01 * torch.randn(v, generator=gen)
+            cin, idx = v, idx + 2
+        paths[f"vgg{depth}"] = os.path.join(root, f"vgg{depth}.pth")
+        torch.save(sd, paths[f"vgg{depth}"])
+    paths["lpips_lin"] = os.path.join(root, "lpips_lin.pth")
+    torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1, generator=gen)
+                for i, c in enumerate((64, 128, 256, 512, 512))}, paths["lpips_lin"])
+    return paths
+
+
+def reference_pth(state, path, drop=(), extra=None):
+    """Write a reference-style checkpoint of a port state dict to `path`:
+    keys under `module.`, VGG19 convolutions under their slice, the
+    anti-alias buffers and the VGG19 mean/std beside the weights, and
+    optimizer entries. `drop` leaves keys out, `extra` adds entries."""
+    from mrfa_tpu_torch.nn.vgg import _SLICE_CONVS
+
+    slice_of = {idx: k + 1 for k, convs in enumerate(_SLICE_CONVS) for idx, _ in convs}
+    sd = {}
+    for key, v in state.items():
+        if key in drop:
+            continue
+        if key.startswith("vgg.features_"):
+            idx, rest = key[len("vgg.features_"):].split(".", 1)
+            key = f"vgg.slice{slice_of[int(idx)]}.{idx}.{rest}"
+        sd["module." + key] = v.detach().cpu().clone()
+    sd["module.pyramid.downs.0_25.weight"] = torch.ones(3, 1, 13, 13)
+    sd["module.down.weight"] = torch.ones(3, 1, 13, 13)
+    sd["module.vgg.mean"] = torch.zeros(1, 3, 1, 1)
+    sd["module.vgg.std"] = torch.ones(1, 3, 1, 1)
+    sd.update(extra or {})
+    torch.save({"model": sd, "optimizer": {"state": {}}, "epoch": 3}, path)
+
+
+def cli_config(size: int = 64) -> dict:
+    """A whole run config (the sections both packages' CLIs read) around
+    `train_cfg(size)`: a dataset under ./data, the eval and visualizer
+    sections of config/vox1.yaml."""
+    cfg = train_cfg(size, blocks=3, depth=1)
+    cfg["dataset_params"] = {"root_dir": "data", "frame_shape": [size, size, 3],
+                             "id_sampling": False}
+    cfg["reconstruction_params"] = {"num_videos": None, "format": ".mp4"}
+    cfg["animate_params"] = {"num_pairs": 1, "format": ".mp4", "normalization_params": {
+        "adapt_movement_scale": False, "use_relative_movement": True,
+        "use_relative_jacobian": True}}
+    cfg["visualizer_params"] = {"draw_border": True, "colormap": "gist_rainbow"}
+    return cfg
+
+
+def write_cli_inputs(root, cfg=None, seed: int = 0):
+    """A config yaml of `cfg` (default `cli_config()`, 64 px) and a
+    reference-format `.pth` of a port model built on the CPU from `seed`,
+    both under `root`: (config path, .pth path, the model's state dict)."""
+    from mrfa_tpu_torch.config import model_config
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    cfg = cli_config() if cfg is None else cfg
+    config_path = os.path.join(root, "model.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    torch.manual_seed(seed)
+    state = MRFA(model_config(cfg), device="cpu").state_dict()
+    pth_path = os.path.join(root, "model.pth")
+    reference_pth(state, pth_path)
+    return config_path, pth_path, state
