@@ -116,7 +116,23 @@ and runs these phases; any failure exits non-zero:
  16. `utils.profiling` on the card: `trace` and `annotate` around 2 bf16
      training steps (the spans and the port's kernels, in bf16, in the
      trace; the cuDNN FFT-convolution share beside the f32 step's of phase
-     8), `StepTimer` against CUDA events.
+     8), `StepTimer` against CUDA events;
+ 17. more than one device: (a) a one-rank NCCL world in this process and
+     its data mesh (`parallel.mesh`), config/vox1.yaml at 256 px, batch 10,
+     bf16 policy: the mesh `Trainer`'s step against a plain `Trainer`'s
+     from the same weights (within twice the card's own run-to-run spread),
+     then timed steps (ms/step beside phase 13b's, peak memory, 6 / 6 / 17
+     / 22 launches a step); (b) two ranks on the one card over gloo (NCCL
+     refuses two ranks on one GPU), spawned right after phase 1, while this
+     process holds little of the card's memory: at phase 4's setup each rank's
+     step against a one-process card step on the global batch with phase
+     4's tolerances and the ranks' weights equal, then 256 px bf16 at 5
+     rows a rank (ms/step: gloo through the host, not NCCL between cards)
+     and each rank's launches; (c) `AnimationServer(devices=["cuda:0",
+     "cuda:0"])` at S=8 against the one-device server (f32 `serve` within
+     1e-4; bf16 `serve` and `serve_chunk` K=4 within phase 11b's mean gate,
+     stream-frames/s beside phase 11b's S=8), 6 lookups a step on each
+     device. A run over several GPUs is not verified.
 
 Stdout ends with a `{"kernels": [...], "sums": {...}}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
@@ -1522,7 +1538,7 @@ def phase_server(kernels, card, weights, compute_dtype=None):
     calls of K=4 (the CUDA graph, after its capture; equal to `serve` frame
     by frame), the busy ms a step from a profile, each stream's first frame
     against an `Animator` that runs it alone, and 6 lookups a step. Returns
-    the launch counts by path."""
+    the launch counts by path and the results by path."""
     import torch
 
     from mrfa_tpu_torch.animate import Animator, FrameGraph
@@ -1532,7 +1548,7 @@ def phase_server(kernels, card, weights, compute_dtype=None):
     name = dtype_name(compute_dtype or torch.float32)
     server = AnimationServer(MRFA(vox1_cfg(), compute_dtype=compute_dtype), weights)
     animator = Animator(MRFA(vox1_cfg(), compute_dtype=compute_dtype), weights)
-    paths = {}
+    paths, results = {}, {}
     for n_streams in SERVER_STREAMS:
         label = f"server_s{n_streams}_{name}"
         gen = torch.Generator().manual_seed(SEED + 60 + n_streams)
@@ -1652,10 +1668,11 @@ def phase_server(kernels, card, weights, compute_dtype=None):
             "peak_memory_bytes": peak, **tuned,
         }
         print("phase11b " + json.dumps(result))
+        results[label] = result
         del state, outs, chunks, frames_dev, stack
     del server, animator
     torch.cuda.empty_cache()
-    return paths
+    return paths, results
 
 
 def prior_cfg(prior: str) -> dict:
@@ -2560,6 +2577,595 @@ def phase_clis(kernels, card, work: Path):
 
 
 
+MESH_WARMUP_STEPS = 2
+MESH_TIMED_STEPS = 3  # a turn; two turns of each Trainer
+MESH_COLLECTIVE_CALLS = 5  # timed calls of each collective in the one-rank world
+GLOO_RANKS = 2  # two ranks share the one card: NCCL refuses that, gloo does not
+GLOO_BATCH = 5  # a rank's rows of the 256 px global batch of 10
+GLOO_WARMUP_STEPS = 1
+GLOO_TIMED_STEPS = 3
+SPLIT_DEVICES = ("cuda:0", "cuda:0")
+SPLIT_STREAMS = 8
+SPLIT_CHUNK_STREAMS = 4  # the f32 serve_chunk's: 2 streams a share
+# the bf16 split server against the one-device bf16 server: both bf16 on the
+# same weights, their convolutions over batches of 4 and of 8 (read on an
+# H100 80GB HBM3 at 700 W: 6.9e-6 mean, 0.0078 max, 2 bf16 ulps below 1);
+# a stale or misrouted share moves the mean by orders of magnitude more
+SPLIT_BF16_MEAN_TOL = 1e-4
+SPLIT_BF16_MAX_TOL = 2.0 ** -6
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _params_and_grads(trainer) -> dict:
+    """{name: (the parameter, its gradient)} on the CPU in f32, for the
+    parameters the last step gave a gradient."""
+    return {n: (p.detach().float().cpu(), p.grad.float().cpu())
+            for n, p in trainer.model.named_parameters() if p.grad is not None}
+
+
+# a bf16 gradient moved by one rounding step at most 2^-7 of its tensor's
+# largest gradient: the gap between two draws of the same bf16 step on the
+# card, where the splat adds each bin's samples in the order their slots
+# were claimed (csrc/splat.cu), so an f32 sum near a bf16 tie can round
+# either way and carry that upstream
+BF16_STEP = 2.0 ** -7
+
+
+def _step_distance(ref: dict, other: dict, lr: float, label: str) -> dict:
+    """One first step from the same weights against another (`_params_and_
+    grads` snapshots): each tensor's gradient within BF16_STEP of its max
+    |g|; a tensor whose (clipped) gradient is bit-equal updates to
+    bit-equal weights (Adam is elementwise); the others within 2 lr (Adam's
+    first update moves an element by less than lr). Returns the readings."""
+    import torch
+
+    check(sorted(other) == sorted(ref), f"{label}: other parameters got gradients")
+    out = {"grads_max_err_over_max_g": 0.0, "grad_tensors_differing": 0,
+           "grad_elements_differing": 0, "weights_max_abs": 0.0, "worst": []}
+    for name, (w, g) in ref.items():
+        w_o, g_o = other[name]
+        moved = (g_o - g).abs()
+        if not bool((moved > 0).any()):
+            check(torch.equal(w_o, w), f"{label}: {name} has the same gradient but "
+                                       f"other weights after the step")
+            continue
+        rel = float(moved.max()) / max(float(g.abs().max()), float(g_o.abs().max()))
+        out["grads_max_err_over_max_g"] = max(out["grads_max_err_over_max_g"], rel)
+        out["grad_tensors_differing"] += 1
+        out["grad_elements_differing"] += int((moved > 0).sum())
+        out["weights_max_abs"] = max(out["weights_max_abs"], float((w_o - w).abs().max()))
+        out["worst"].append((rel, name))
+        check(rel <= BF16_STEP, f"{label} gradient {name}: err / max |g| {rel:.3e} > "
+                                f"{BF16_STEP:.3e}")
+    out["worst"] = sorted(out["worst"], reverse=True)[:3]
+    check(out["weights_max_abs"] < 2 * lr,
+          f"{label} weights after the step: err {out['weights_max_abs']:.3e} >= 2 lr")
+    return out
+
+
+def phase_mesh_nccl(kernels, card, bf16_train):
+    """Phase 17a: a one-rank NCCL world in this process and its data mesh.
+    config/vox1.yaml's model at 256 px, batch 10, under the bf16 policy: one
+    step of the mesh `Trainer` against a plain `Trainer` from the same
+    weights, generators and batch: the loss terms and BatchNorm buffers
+    bit-equal (the forward is deterministic on the card), the gradients
+    and weights by `_step_distance`. A second plain step (the twin) is held
+    to the same gates: the card's own run-to-run spread, which they must
+    cover. A data group of one rank takes the plain step (nothing to sync or average), so
+    the collectives a larger world adds run here on their own, over this
+    NCCL group and on the mesh step's gradients and loss terms: each leaves
+    them bit-equal (a sum over one rank, divided by 1), and each is timed
+    (ms a call, the mean of MESH_COLLECTIVE_CALLS). Then both Trainers timed
+    in turns, plain, mesh, mesh, plain (ms/step, beside phase 13b's too;
+    peak memory over the turns; 6 / 6 / 17 / 22 launches a mesh step).
+    Returns the mesh steps' launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.parallel.mesh import (
+        DATA_AXIS, average_gradients, average_scalars, make_mesh, replicated,
+    )
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    bf16 = torch.bfloat16
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        torch.manual_seed(SEED)
+        weights = MRFA(vox1_cfg()).state_dict()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+        batches = [{k: smooth_frames(TRAIN_BATCH, FRAME_SIZE, gen, "cuda")
+                    for k in ("source", "driving")}
+                   for _ in range(1 + MESH_WARMUP_STEPS + 4 * MESH_TIMED_STEPS)]
+
+        def first_step(mesh_):
+            trainer = Trainer(vox1_cfg(), generator=torch.Generator().manual_seed(SEED),
+                              weights=weights, compute_dtype=bf16, mesh=mesh_)
+            out = trainer.step(batches[0])
+            buffers = {n: b.detach().cpu() for n, b in trainer.model.named_buffers()}
+            return trainer, {k: v for k, v in out.items() if k != "gen"}, \
+                _params_and_grads(trainer), buffers
+
+        plain, want, ref, ref_buffers = first_step(None)
+        lr = plain.optimizer.param_groups[0]["lr"]
+        twin_trainer, twin_terms, twin, twin_buffers = first_step(None)
+        del twin_trainer
+        trainer, got, snap, buffers = first_step(mesh)
+        errs = {}
+        for label, terms, step, bufs in (("twin", twin_terms, twin, twin_buffers),
+                                         ("mesh", got, snap, buffers)):
+            check(all(np.isfinite(terms[k]) for k in want),
+                  f"phase17a {label} loss terms not finite")
+            check(terms == want, f"phase17a {label} loss terms: {terms} != {want}")
+            check(all(torch.equal(bufs[n], b) for n, b in ref_buffers.items()),
+                  f"phase17a {label}: BatchNorm buffers differ from the plain step's")
+            errs[label] = _step_distance(ref, step, lr, f"phase17a {label}")
+        print(f"phase17a against the plain step: mesh {errs['mesh']}; the plain twin "
+              f"{errs['twin']}", flush=True)
+        del ref, twin, snap, ref_buffers, twin_buffers, buffers
+        check(trainer.group is None, "phase17a: a one-rank mesh Trainer took the synced path")
+        group = mesh.get_group(DATA_AXIS)
+        model = trainer.model
+        grads = [p.grad.clone() for p in model.parameters() if p.grad is not None]
+        weights_before = [t.clone() for t in (*model.parameters(), *model.buffers())]
+        terms = {k: torch.tensor(v, device="cuda") for k, v in got.items()}
+        collectives = {
+            "replicated": lambda: replicated(model, mesh),
+            "average_gradients": lambda: average_gradients(model.parameters(), group),
+            "average_scalars": lambda: average_scalars(terms, group),
+        }
+        collective_ms = {}
+        for name, call in collectives.items():
+            call()  # NCCL sets up its communicator at the first call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_COLLECTIVE_CALLS):
+                call()
+            torch.cuda.synchronize()
+            collective_ms[name] = (time.perf_counter() - t0) / MESH_COLLECTIVE_CALLS * 1e3
+        averaged = average_scalars(terms, group)
+        check(all(torch.equal(averaged[k], v) for k, v in terms.items()),
+              "phase17a: average_scalars over one rank moved the loss terms")
+        check(all(torch.equal(p.grad, g) for p, g in
+                  zip([p for p in model.parameters() if p.grad is not None], grads)),
+              "phase17a: average_gradients over one rank moved the gradients")
+        check(all(torch.equal(a, b) for a, b in
+                  zip((*model.parameters(), *model.buffers()), weights_before)),
+              "phase17a: replicated over one rank moved the weights")
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        del grads, weights_before, terms, averaged
+        # the mesh and the plain Trainer timed in turns (plain, mesh, mesh,
+        # plain), MESH_TIMED_STEPS steps a turn, after MESH_WARMUP_STEPS each
+        trainers = {"plain": plain, "mesh": trainer}
+        batches = batches[1:]
+        losses = [t.step(b) for t in trainers.values() for b in batches[:MESH_WARMUP_STEPS]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = {"plain": [], "mesh": []}
+        launches = dict.fromkeys(PER_STEP, 0)
+        for i, label in enumerate(("plain", "mesh", "mesh", "plain")):
+            turn = batches[MESH_WARMUP_STEPS + i * MESH_TIMED_STEPS:][:MESH_TIMED_STEPS]
+            reset(kernels)
+            t0 = time.perf_counter()
+            losses += [trainers[label].step(b) for b in turn]
+            torch.cuda.synchronize()
+            seconds[label].append(time.perf_counter() - t0)
+            if label == "mesh":
+                launches = {k: launches.get(k, 0) + v for k, v in launch_counts(kernels).items()}
+        n_steps = 2 * MESH_TIMED_STEPS
+        for name, per_step in PER_STEP.items():
+            check(launches[name] == per_step * n_steps,
+                  f"phase17a {name} launches {launches[name]} != {per_step} x {n_steps}")
+        check(all(np.isfinite(o[k]) for o in losses for k in o if k != "gen"), "phase17a loss")
+        ms = {k: [t / MESH_TIMED_STEPS * 1e3 for t in v] for k, v in seconds.items()}
+        result = {
+            "phase": "mesh_nccl", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+            "world": 1, "backend": dist.get_backend(), "batch_per_rank": TRAIN_BATCH,
+            "dtype": "bfloat16 policy, f32 masters", "tf32": False, "card": card,
+            "steps_timed": n_steps, "ms_per_step": sum(ms["mesh"]) / 2,
+            "samples_per_s": TRAIN_BATCH * 2e3 / sum(ms["mesh"]),
+            "ms_per_step_by_turn": ms, "plain_ms_per_step": sum(ms["plain"]) / 2,
+            "phase13b_ms_per_step": bf16_train["ms_per_step"],
+            "collectives_one_rank_ms": collective_ms, "gradient_bytes": grad_bytes,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+            "vs_plain_step": {"terms_and_buffers": "bit-equal", "lr": lr,
+                              "grad_tol_over_max_g": BF16_STEP,
+                              **{f"{label}_{k}": v for label, e in errs.items()
+                                 for k, v in e.items() if k != "worst"}},
+        }
+        print("phase17a " + json.dumps(result))
+        del trainer, plain, trainers, losses, batches, weights
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _moments_batch_norm():
+    """BatchNorm's training statistics in one process from E[x] and
+    E[x^2], in the arithmetic of its synced path (nn/norm.py), in place of
+    `F.batch_norm`'s."""
+    import torch
+
+    from mrfa_tpu_torch.nn.norm import BatchNorm
+
+    plain = BatchNorm.forward
+
+    def forward(self, x):
+        if not self.training:
+            return plain(self, x)
+        xc = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, mean2 = xc.mean((0, 2, 3)), (xc * xc).mean((0, 2, 3))
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var * (n / (n - 1)))
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1, 1, 1)
+        y = (xc - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+    BatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm.forward = plain
+
+
+def _gloo_rank(rank: int, port: int, out_dir: str) -> None:
+    """Phase 17b, one rank of a gloo world of GLOO_RANKS on the one card
+    (started by `torch.multiprocessing.spawn`): at phase 4's setup, one mesh
+    step on this rank's rows of a global batch, held on rank 0 against a
+    one-process card step on the global batch with phase 4's tolerances
+    (loss terms rtol 1e-4; each gradient and BatchNorm statistic within
+    1e-3 of the tensor's max |g| (1e-5 for the statistics) or twice (four
+    times where that move exceeds the tensor's max |g|: a gradient of
+    rounding noise) what the one-process step moves when its input frames
+    move by 1e-6, when
+    its BatchNorm takes the synced path's arithmetic (`_moments_batch_norm`:
+    the 64 px f32 step is ill conditioned, and that rounding alone moves a
+    few gradients past the input floor on the CPU) or, as phase 12a's
+    second floor, when cuDNN is off), the ranks' weights equal after the
+    update; then config/vox1.yaml at 256 px
+    under the bf16 policy, GLOO_BATCH rows a rank: ms/step and the launches
+    a step. Writes its numbers to out_dir/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from mrfa_tpu_torch.ops import launches as launch_registry
+    from mrfa_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh, shard_batch
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {k.name: k for k in launch_registry.kernels()}
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=GLOO_RANKS)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        group = mesh.get_group(DATA_AXIS)
+        result = {"rank": rank}
+        cfg = small_cfg(losses=True)
+        torch.manual_seed(SEED + 20)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random VGG19's warning
+            meshed = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 21), mesh=mesh)
+        weights = {k: v.clone() for k, v in meshed.model.state_dict().items()}
+        batch = {k: smooth_frames(2 * GLOO_RANKS, 64, torch.Generator().manual_seed(SEED + i),
+                                  "cpu") for i, k in enumerate(("source", "driving"), start=22)}
+        reset(kernels)
+        got = meshed.step(shard_batch(batch, mesh))
+        counts = launch_counts(kernels)
+        for name, per_step in PER_STEP.items():  # at 64 px fewer splats bin their samples
+            check(counts[name] == per_step or name == "splat_bins",
+                  f"phase17b rank {rank}: {name} launches {counts}")
+        result["launches_64px"] = counts
+        flat = torch.cat([p.detach().reshape(-1) for p in meshed.model.parameters()])
+        first = flat.clone()
+        dist.broadcast(first, src=0, group=group)
+        result["weights_spread_64px"] = float((flat - first).abs().max())
+        check(result["weights_spread_64px"] == 0.0, f"phase17b rank {rank}: weights differ")
+        del flat, first
+        if rank == 0:
+            def plain(b):
+                trainer = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 21),
+                                  weights={k: v.clone() for k, v in weights.items()})
+                return trainer, trainer.step(b)
+
+            on_one, want = plain(batch)
+            floors = []
+            for i in range(3):
+                noise = torch.Generator().manual_seed(SEED + 30 + i)
+                floors.append(plain({k: v + 1e-6 * torch.randn(v.shape, generator=noise)
+                                     for k, v in batch.items()})[0])
+            with _moments_batch_norm():
+                floors.append(plain(batch)[0])
+            with torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=False,
+                                            allow_tf32=False):
+                floors.append(plain(batch)[0])
+            for k in (k for k in want if k != "gen"):
+                rel = abs(got[k] - want[k]) / abs(want[k])
+                check(np.isfinite(got[k]) and rel <= 1e-4, f"phase17b loss {k}: rel {rel}")
+                result[f"rel_err_{k}"] = rel
+            mine = dict(meshed.model.named_parameters())
+            floor_p = [dict(t.model.named_parameters()) for t in floors]
+            ratios = []  # (err / tol, name, err, the floors' moves, 1e-3 max |g|)
+            noise_class = []  # (err / the largest move, name, max |g|) of the 4x class
+            for name, p in on_one.model.named_parameters():
+                if p.grad is None:
+                    continue
+                scale = max(float(p.grad.abs().max()), 1e-30)
+                err = float((mine[name].grad - p.grad).abs().max())
+                moves = [float((fp[name].grad - p.grad).abs().max()) for fp in floor_p]
+                # a gradient that the floors move by more than its own size
+                # is rounding noise (the conv biases that BatchNorm follows,
+                # 0 in exact arithmetic): held within 4x the largest move
+                noise = (4 if max(moves) >= scale else 2) * max(moves)
+                ratios.append((err / max(1e-3 * scale, noise), name, err, moves, 1e-3 * scale))
+                if max(moves) >= scale:
+                    noise_class.append((err / max(moves), name, scale))
+            ratios.sort(reverse=True)
+            noise_class.sort(reverse=True)
+            result["grads_worst_err_over_tol"] = ratios[:5]
+            # the readings behind the 4x rule: err over the largest move is
+            # what 2x would hold to 2 and 4x holds to 4
+            result["noise_class_grads"] = {"count": len(noise_class),
+                                           "worst_err_over_largest_move": noise_class[:5]}
+            print(f"phase17b rank 0: {len(noise_class)} gradients moved by the floors beyond "
+                  f"their max |g|; worst err / largest move (name, max |g|): {noise_class[:5]}",
+                  flush=True)
+            print(f"phase17b rank 0 gradients: {len(ratios)} tensors; worst err / tol "
+                  f"(name, err, floors' moves: 3 inputs, moments BatchNorm, cuDNN off): "
+                  f"{ratios[:5]}", flush=True)
+            for ratio, name, err, _, _ in ratios:
+                check(ratio <= 1.0, f"phase17b gradient of {name}: err / tol {ratio:.3f}")
+            state, want_state = meshed.model.state_dict(), on_one.model.state_dict()
+            floor_state = [t.model.state_dict() for t in floors]
+            stat_err = 0.0
+            for key, t in want_state.items():
+                if key.endswith(("running_mean", "running_var")):
+                    err = float((state[key] - t).abs().max())
+                    noise = 2 * max(float((fs[key] - t).abs().max()) for fs in floor_state)
+                    check(err <= max(1e-5, noise), f"phase17b statistic {key}: err {err:.3e}")
+                    stat_err = max(stat_err, err)
+            result["bn_stats_max_abs_err"] = stat_err
+            del on_one, floors, floor_p, floor_state
+        del meshed, weights
+        torch.cuda.empty_cache()
+
+        torch.manual_seed(SEED)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            trainer = Trainer(vox1_cfg(), generator=torch.Generator().manual_seed(SEED),
+                              compute_dtype=torch.bfloat16, mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        n_steps = GLOO_WARMUP_STEPS + GLOO_TIMED_STEPS
+        batches = [shard_batch({k: smooth_frames(GLOO_BATCH * GLOO_RANKS, FRAME_SIZE, gen, "cuda")
+                                for k in ("source", "driving")}, mesh) for _ in range(n_steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        losses = [trainer.step(b) for b in batches[:GLOO_WARMUP_STEPS]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [trainer.step(b) for b in batches[GLOO_WARMUP_STEPS:]]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = launch_counts(kernels)
+        for name, per_step in PER_STEP.items():
+            check(counts[name] == per_step * n_steps,
+                  f"phase17b rank {rank} 256 px: {name} launches {counts[name]}")
+        check(all(np.isfinite(o[k]) for o in losses for k in o if k != "gen"), "phase17b loss")
+        result.update({"launches_256px": counts, "ms_per_step": elapsed / GLOO_TIMED_STEPS * 1e3,
+                       "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                       "steps_timed": GLOO_TIMED_STEPS, "loss_last": losses[-1]["loss"]})
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    except BaseException:
+        # spawn reports the first rank to exit, and a rank that fails closes
+        # the other's connections: print each rank's own failure
+        import traceback
+
+        print(f"phase17b rank {rank} failed:\n{traceback.format_exc()}", flush=True)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_gloo(card, work: Path) -> dict:
+    """Phase 17b: GLOO_RANKS processes on the one card over gloo
+    (`_gloo_rank`). gloo moves CUDA tensors through the host, so its ms/step
+    measures gloo over PCIe and the host, not NCCL between cards; a run over
+    several GPUs is not verified here. Returns each rank's launch counts."""
+    import gc
+
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved()}
+    out_dir = work / "gloo"
+    out_dir.mkdir()
+    mp.spawn(_gloo_rank, args=(_free_port(), str(out_dir)), nprocs=GLOO_RANKS, join=True)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(GLOO_RANKS)]
+    result = {
+        "phase": "mesh_gloo", "config": "config/vox1.yaml mtia", "size": FRAME_SIZE,
+        "world": GLOO_RANKS, "backend": "gloo (one card, collectives through the host)",
+        "batch_per_rank": GLOO_BATCH, "global_batch": GLOO_BATCH * GLOO_RANKS,
+        "dtype": "bfloat16 policy, f32 masters", "tf32": False, "card": card,
+        "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+        "samples_per_s": GLOO_BATCH * GLOO_RANKS / (max(r["ms_per_step"] for r in ranks) / 1e3),
+        "ranks": ranks, "parent_process_card_bytes": parent,
+        "multi_gpu": "not verified (one card)",
+    }
+    print("phase17b " + json.dumps(result))
+    return {f"mesh_gloo_rank{r['rank']}": {k: r["launches_64px"][k] + r["launches_256px"][k]
+                                           for k in r["launches_64px"]} for r in ranks}
+
+
+def _check_replica_graphs(split, name: str) -> None:
+    """Each replica of a split server holds a CUDA graph captured on its own
+    device whose replay launches the frame step's 6 lookups."""
+    for i, r in enumerate(split.replicas):
+        graph = r._graph
+        check(graph is not None and graph.input.device == r.device
+              and graph.output.device == r.device,
+              f"phase17c {name}: replica {i} has no graph on {r.device}")
+        check(graph.launches["corr_lookup"] == 6,
+              f"phase17c {name}: replica {i}'s graph replays {graph.launches}")
+
+
+def _split_chunk_f32(kernels, split, one, sources, frames, frames_dev) -> dict:
+    """Phase 17c's f32 `serve_chunk`: K=CHUNK frames of SPLIT_CHUNK_STREAMS
+    streams over the split server's replicas, against the one-device
+    server's eager `serve` of each share's streams, frame by frame
+    (bit-equal); the replicas' graphs checked; frames that differ give
+    frames that differ (a stale replay gives the capture's frame)."""
+    import torch
+
+    from mrfa_tpu_torch.animate import FrameGraph
+
+    n, parts = SPLIT_CHUNK_STREAMS, len(SPLIT_DEVICES)
+    stack = frames_dev[:CHUNK, :n]
+    state = split.open_streams(sources[:n], frames[0][:n])
+    reset(kernels)
+    got = split.serve_chunk(state, stack)
+    counts = launch_counts(kernels)
+    check(counts["corr_lookup"] == 6 * parts * (FrameGraph.WARMUP_STEPS + CHUNK),
+          f"phase17c f32 serve_chunk: {counts['corr_lookup']} lookups")
+    _check_replica_graphs(split, "float32")
+    check(all(float((got[k] - got[0]).abs().max()) > 0 for k in range(1, CHUNK)),
+          "phase17c f32 serve_chunk: frames that differ gave equal frames")
+    want = []
+    for i in range(parts):
+        rows = slice(i * n // parts, (i + 1) * n // parts)
+        st = one.open_streams(sources[rows], frames[0][rows])
+        want.append(torch.stack([one.serve(st, f[rows]) for f in stack]))
+    err = float((got - torch.cat(want, dim=1)).abs().max())
+    check(err == 0.0, f"phase17c f32 split serve_chunk differs from the shares' serve by {err}")
+    return {"chunk_streams": n, "chunk_max_abs_vs_one_device_shares": err}
+
+
+def phase_split_server(kernels, card, server_results) -> dict:
+    """Phase 17c: `AnimationServer(devices=SPLIT_DEVICES)` at
+    SPLIT_STREAMS streams (config/vox1.yaml's model, 256 px, random weights
+    from the seed) against a one-device server of the same streams: in f32
+    one `serve` step (max abs 1e-4, SERVER_ANIMATOR_TOL), and a K=CHUNK
+    `serve_chunk` of SPLIT_CHUNK_STREAMS streams (each share small enough
+    to stay out of cuDNN's FFT-tiled convolution) bit-equal to the
+    one-device server's eager `serve` on each share's streams (the same
+    kernels at the same shapes, as phase 3c holds a graph to its eager
+    frames); under the bf16 policy `serve` and `serve_chunk` (K=CHUNK) at
+    S=SPLIT_STREAMS within SPLIT_BF16_MEAN_TOL mean and SPLIT_BF16_MAX_TOL
+    max, timed (stream-frames/s beside phase 11b's S=8). Each replica's
+    graph is captured on its own device and replays 6 lookups; 6 lookups a
+    step on each device. Returns the launch counts by path."""
+    import torch
+
+    from mrfa_tpu_torch.animate import FrameGraph
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.serving import AnimationServer
+
+    torch.manual_seed(SEED)
+    weights = MRFA(vox1_cfg()).state_dict()
+    gen = torch.Generator().manual_seed(SEED + 90)
+    sources = smooth_frames(SPLIT_STREAMS, FRAME_SIZE, gen, "cpu").numpy()
+    n_steps = SERVER_WARMUP + SERVER_TIMED
+    frames = smooth_frames((1 + n_steps) * SPLIT_STREAMS, FRAME_SIZE, gen, "cpu").numpy()
+    frames = frames.reshape(-1, SPLIT_STREAMS, FRAME_SIZE, FRAME_SIZE, 3)
+    frames_dev = torch.from_numpy(frames[1:]).cuda()
+    paths, result = {}, {"phase": "split_server", "config": "config/vox1.yaml mtia",
+                         "size": FRAME_SIZE, "streams": SPLIT_STREAMS,
+                         "devices": list(SPLIT_DEVICES), "tf32": False, "card": card,
+                         "multi_gpu": "not verified (one card)"}
+    for compute_dtype in (None, torch.bfloat16):
+        name = dtype_name(compute_dtype or torch.float32)
+        one = AnimationServer(MRFA(vox1_cfg(), compute_dtype=compute_dtype), weights)
+        split = AnimationServer(MRFA(vox1_cfg(), compute_dtype=compute_dtype), weights,
+                                devices=list(SPLIT_DEVICES))
+        want_state = one.open_streams(sources, frames[0])
+        state = split.open_streams(sources, frames[0])
+        reset(kernels)
+        got = split.serve(state, frames_dev[0])
+        counts = launch_counts(kernels)
+        check(counts["corr_lookup"] == 6 * len(SPLIT_DEVICES),
+              f"phase17c {name}: {counts['corr_lookup']} lookups, not 6 on each device")
+        want = one.serve(want_state, frames_dev[0])
+        diff = (got - want).abs()
+        entry = {"serve_max_abs": float(diff.max()), "serve_mean_abs": float(diff.mean())}
+        if compute_dtype is None:
+            check(entry["serve_max_abs"] <= SERVER_ANIMATOR_TOL,
+                  f"phase17c f32 split serve differs by {entry['serve_max_abs']}")
+            entry.update(_split_chunk_f32(kernels, split, one, sources, frames, frames_dev))
+            result[name] = entry
+            del one, split, state, want_state
+            continue
+        check(entry["serve_mean_abs"] <= SPLIT_BF16_MEAN_TOL
+              and entry["serve_max_abs"] <= SPLIT_BF16_MAX_TOL,
+              f"phase17c bf16 split serve differs by {entry['serve_mean_abs']} mean, "
+              f"{entry['serve_max_abs']} max")
+        reset(kernels)
+        for f in frames_dev[:SERVER_WARMUP]:
+            split.serve(state, f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames_dev[SERVER_WARMUP:]:
+            split.serve(state, f)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        stack = frames_dev[SERVER_WARMUP:]
+        split.serve_chunk(state, stack[:CHUNK])  # the captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = [split.serve_chunk(state, stack[i:i + CHUNK])
+                  for i in range(0, SERVER_TIMED, CHUNK)]
+        torch.cuda.synchronize()
+        chunk_elapsed = time.perf_counter() - t0
+        paths["split_server_bf16"] = launch_counts(kernels)
+        # each replica's steps: serve's, its graph's warm-up and capture
+        # chunk, the timed chunks
+        steps = n_steps + FrameGraph.WARMUP_STEPS + CHUNK + SERVER_TIMED
+        check(paths["split_server_bf16"]["corr_lookup"] == 6 * len(SPLIT_DEVICES) * steps,
+              f"phase17c bf16: {paths['split_server_bf16']} over {steps} steps on each device")
+        _check_replica_graphs(split, name)
+        want_chunk = torch.cat([one.serve_chunk(want_state, stack[i:i + CHUNK])
+                                for i in range(0, SERVER_TIMED, CHUNK)])
+        chunk_diff = (torch.cat(chunks) - want_chunk).abs()
+        check(float(chunk_diff.mean()) <= SPLIT_BF16_MEAN_TOL
+              and float(chunk_diff.max()) <= SPLIT_BF16_MAX_TOL,
+              f"phase17c bf16 split serve_chunk differs by {float(chunk_diff.mean())} mean, "
+              f"{float(chunk_diff.max())} max")
+        s8 = server_results[f"server_s{SPLIT_STREAMS}_{name}"]
+        entry.update({
+            "serve_stream_frames_per_s": SPLIT_STREAMS * SERVER_TIMED / elapsed,
+            "chunk_stream_frames_per_s": SPLIT_STREAMS * SERVER_TIMED / chunk_elapsed,
+            "phase11b_serve_stream_frames_per_s": s8["serve_stream_frames_per_s"],
+            "phase11b_chunk_stream_frames_per_s": s8["chunk_stream_frames_per_s"],
+            "chunk_max_abs": float(chunk_diff.max()), "chunk_mean_abs": float(chunk_diff.mean()),
+            "lookups_per_step_per_device": 6,
+        })
+        result[name] = entry
+        del one, split, state, want_state, chunks, want_chunk
+    print("phase17c " + json.dumps(result))
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2593,6 +3199,16 @@ def main() -> int:
 
     errs = phase_kernels(kernels, device)
     stamp("phase 1")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    # phase 17b now, while this process holds little of the card's memory:
+    # its two ranks share the card with it
+    work = Path(tempfile.mkdtemp(prefix="smoke_run_", dir=build))
+    try:
+        gloo_paths = phase_mesh_gloo(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    stamp("phase 17b")
     phase_gpu_vs_cpu()
     phase_gpu_vs_cpu(prior_only=True)
     phase_gpu_vs_cpu_bf16()
@@ -2624,8 +3240,6 @@ def main() -> int:
     stamp("phase 8")
     del trainer, batch, animator, state, bf16_animator, bf16_state
     torch.cuda.empty_cache()
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="smoke_run_", dir=build))
     try:
         celeb, celeb_cfg, loop_paths = phase_loop_celebvhq(kernels, card, work)
@@ -2653,8 +3267,11 @@ def main() -> int:
 
     torch.manual_seed(SEED)
     weights = MRFA(vox1_cfg()).state_dict()
+    server_results = {}
     for compute_dtype in (None, torch.bfloat16):
-        paths.update(phase_server(kernels, card, weights, compute_dtype))
+        server_paths, results = phase_server(kernels, card, weights, compute_dtype)
+        paths.update(server_paths)
+        server_results.update(results)
     del weights
     stamp("phase 11b")
     for prior in ("fomm", "tpsm"):
@@ -2668,7 +3285,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_bf16_gpu_vs_cpu()
     stamp("phase 13a")
-    trainer, batch, paths["training_bf16"], _ = phase_train_bf16_full_width(kernels, card)
+    trainer, batch, paths["training_bf16"], bf16_train = phase_train_bf16_full_width(kernels,
+                                                                                      card)
     stamp("phase 13b")
     work = Path(tempfile.mkdtemp(prefix="smoke_run_", dir=build))
     try:
@@ -2682,6 +3300,11 @@ def main() -> int:
         stamp("phase 14")
         paths.update(phase_clis(kernels, card, work))
         stamp("phase 15")
+        paths["mesh_nccl"] = phase_mesh_nccl(kernels, card, bf16_train)
+        stamp("phase 17a")
+        paths.update(gloo_paths)
+        paths.update(phase_split_server(kernels, card, server_results))
+        stamp("phase 17c")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

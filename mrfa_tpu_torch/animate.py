@@ -81,29 +81,34 @@ class FrameGraph:
     the (B, H, W, 3) frame into the captured input, replays the step and
     returns the generated (B, H, W, 3) image (a view of the graph's output,
     overwritten by the next replay). The kernels' launch counts grow by the
-    captured launches at every replay."""
+    captured launches at every replay. The graph is captured and replayed
+    on the frame's device, whichever device is current."""
 
     WARMUP_STEPS = 2  # eager steps before the capture
 
     def __init__(self, step, clip_state, frame: torch.Tensor):
         self.clip_state = clip_state
         self.input = frame.clone()
-        side = torch.cuda.Stream(self.input.device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # cuDNN and cuBLAS pick their kernels here
-            for _ in range(self.WARMUP_STEPS):
-                step(clip_state, self.input)
-        torch.cuda.current_stream().wait_stream(side)
-        before = launches.counts()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.output = step(clip_state, self.input)[0]
+        with torch.cuda.device(self.input.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # cuDNN and cuBLAS pick their kernels here
+                for _ in range(self.WARMUP_STEPS):
+                    step(clip_state, self.input)
+            torch.cuda.current_stream().wait_stream(side)
+            before = launches.counts()
+            self.graph = torch.cuda.CUDAGraph()
+            # not torch.cuda.graph's default capture stream: one for the whole
+            # process, made on the device that was current at its first capture
+            with torch.cuda.graph(self.graph, stream=side):
+                self.output = step(clip_state, self.input)[0]
         self.launches = {k: n - before[k] for k, n in launches.counts().items()}
         launches.add(self.launches, -1)  # capturing launched nothing
 
     def replay(self, frame: torch.Tensor) -> torch.Tensor:
-        self.input.copy_(frame)
-        self.graph.replay()
+        with torch.cuda.device(self.input.device):
+            self.input.copy_(frame)
+            self.graph.replay()
         launches.add(self.launches)
         return self.output
 

@@ -290,8 +290,9 @@ class BatchLoader:
     per-worker queues; the consumer pops them round-robin, so the batch
     ORDER is the same for any worker count (the items' random draws are
     ordered only with one worker: the dataset's `rng` is shared). Each
-    epoch shuffles with seed + epoch. An epoch left early (the generator
-    closed) stops its workers.
+    epoch shuffles with seed + epoch; a process of a data-parallel run then
+    takes every `num_shards`-th index from `shard_index` on. An epoch left
+    early (the generator closed) stops its workers.
     """
 
     def __init__(
@@ -303,6 +304,8 @@ class BatchLoader:
         num_prefetch: int = 2,
         seed: int = 0,
         num_workers: int = 1,
+        shard_index: int = 0,
+        num_shards: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -311,12 +314,14 @@ class BatchLoader:
         self.num_prefetch = num_prefetch
         self.seed = seed
         self.num_workers = max(1, int(num_workers))
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
     def _indices(self, epoch: int) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(idx)
-        return idx
+        return idx[self.shard_index::self.num_shards]
 
     def epoch(self, epoch: int, num_batches: Optional[int] = None):
         """Yield the epoch's batches {'source': (B,H,W,3), 'driving': ...,

@@ -12,8 +12,9 @@ Counterpart of mrfa_tpu/models/dense_motion.py:
     hourglass over the heatmaps block and then the per-motion RGB block,
     and the contribution maps and occlusion logits.
 With `dropout_flag` either network replaces its channel softmax by the TPSM
-channel dropout-softmax (`_dropout_softmax`), whose keep mask is drawn from
-an explicit `torch.Generator` (`dropout_keep`).
+channel dropout-softmax (`_dropout_softmax`) over a (B, K+1) keep mask: the
+caller's (`Trainer` draws it from its own generator, `dropout_keep`), or one
+drawn from torch's default generator.
 
 Layouts: the returned `deformation` is a (B, h, w, 2) normalized grid, as
 `F.grid_sample` takes it; `occlusion` logits are (B, 1, h, w).
@@ -69,10 +70,14 @@ def _dropout_softmax(logits: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return x_exp / (x_exp.sum(dim=1, keepdim=True) + 1e-6)
 
 
-def _motion_softmax(logits, dropout_flag, dropout_p, generator):
+def _motion_softmax(logits, dropout_flag, dropout_p, keep):
     if not dropout_flag:
         return torch.softmax(logits, dim=1)
-    keep = dropout_keep(logits.shape[0], logits.shape[1], dropout_p, generator, logits.device)
+    if keep is None:
+        keep = dropout_keep(logits.shape[0], logits.shape[1], dropout_p, None, logits.device)
+    if keep.shape != logits.shape[:2]:
+        raise ValueError(f"a keep mask of {tuple(keep.shape)} for {tuple(logits.shape[:2])} "
+                         "motion logits")
     return _dropout_softmax(logits, keep)
 
 
@@ -81,7 +86,7 @@ class DenseMotionNetwork(nn.Module):
                  num_channels=3, estimate_occlusion_map=True, scale_factor=0.25,
                  kp_variance=0.01, compute_dtype=None):
         super().__init__()
-        k1 = num_kp + 1
+        k1 = self.motions = num_kp + 1  # the softmax's channels
         self.compute_dtype = compute_dtype
         self.scale_factor = scale_factor
         self.kp_variance = kp_variance
@@ -138,7 +143,7 @@ class DenseMotionNetwork(nn.Module):
         bg_param: Optional[torch.Tensor] = None,
         dropout_flag: bool = False,
         dropout_p=0.0,
-        generator: Optional[torch.Generator] = None,
+        keep: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         source_image = antialias_downsample(source_image, self.scale_factor)
         bs, c, h, w = source_image.shape
@@ -148,7 +153,7 @@ class DenseMotionNetwork(nn.Module):
         # (heatmap, rgb) interleaved per motion: the reference's channel order
         inp = torch.cat([heatmap[:, :, None], deformed], dim=2).reshape(bs, -1, h, w)
         prediction = self.hourglass(inp)
-        mask = _motion_softmax(self.mask(prediction), dropout_flag, dropout_p, generator)
+        mask = _motion_softmax(self.mask(prediction), dropout_flag, dropout_p, keep)
         out = {
             "sparse_deformed": deformed,
             "mask": mask,
@@ -172,6 +177,7 @@ class TPSDenseMotionNetwork(nn.Module):
             )
         self.scale_factor = scale_factor
         self.kp_variance = kp_variance
+        self.motions = num_tps + 1  # the softmax's channels
         in_features = num_channels * (num_tps + 1) + num_tps * 5 + 1
         self.hourglass = Hourglass(block_expansion, in_features=in_features,
                                    max_features=max_features, num_blocks=num_blocks)
@@ -214,7 +220,7 @@ class TPSDenseMotionNetwork(nn.Module):
         bg_param: Optional[torch.Tensor] = None,
         dropout_flag: bool = False,
         dropout_p=0.0,
-        generator: Optional[torch.Generator] = None,
+        keep: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         if self.scale_factor != 1:
             source_image = antialias_downsample(source_image, self.scale_factor)
@@ -225,7 +231,7 @@ class TPSDenseMotionNetwork(nn.Module):
         # the heatmaps block first, then the per-motion RGB block
         inp = torch.cat([heatmap, deformed.reshape(bs, -1, h, w)], dim=1)
         prediction = self.hourglass(inp)
-        contribution = _motion_softmax(self.maps(prediction), dropout_flag, dropout_p, generator)
+        contribution = _motion_softmax(self.maps(prediction), dropout_flag, dropout_p, keep)
         return {
             "deformed_source": deformed,
             "contribution_maps": contribution,

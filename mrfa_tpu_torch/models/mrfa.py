@@ -108,8 +108,8 @@ class MRFA(nn.Module):
         return self.encoder(image)
 
     def run_dense_motion(self, source, kp_d, kp_s, bg_param=None, dropout_flag=False,
-                         dropout_p=0.0, generator=None) -> Dict[str, torch.Tensor]:
-        return self.dense_motion(source, kp_d, kp_s, bg_param, dropout_flag, dropout_p, generator)
+                         dropout_p=0.0, keep=None) -> Dict[str, torch.Tensor]:
+        return self.dense_motion(source, kp_d, kp_s, bg_param, dropout_flag, dropout_p, keep)
 
     def kp_for_decoder(self, kp: Dict[str, torch.Tensor]) -> torch.Tensor:
         """TPSM keypoints are averaged 5 -> 1 per group before RaftFlow."""
@@ -172,7 +172,7 @@ class MRFA(nn.Module):
         use_bg: bool = False,
         dropout_flag: bool = False,
         dropout_p=0.0,
-        dropout_generator: Optional[torch.Generator] = None,
+        dropout_keep: Optional[torch.Tensor] = None,
     ):
         """The training forward of (B, 3, H, W) frames in [0, 1].
 
@@ -180,8 +180,8 @@ class MRFA(nn.Module):
         torch's default generator. `use_bg` runs the background predictor
         (the model must have built it). `dropout_flag` takes the channel
         dropout in the dense motion, each channel dropped with probability
-        `dropout_p`, the mask drawn from `dropout_generator` (torch's
-        default generator when None). Returns (generated (B, 3, H, W), the
+        `dropout_p`: `dropout_keep` is the (B, K+1) keep mask (drawn from
+        torch's default generator when None). Returns (generated (B, 3, H, W), the
         warped-image + occlusion strip (B, 3, H, 8W), the loss terms, the
         source and driving keypoints).
         """
@@ -194,7 +194,7 @@ class MRFA(nn.Module):
         img_down = antialias_downsample(source, 0.25)
         bg_param = self.bg_predictor(source, driving) if use_bg else None
         dense_motion = self.run_dense_motion(source, kp_d, kp_s, bg_param, dropout_flag,
-                                             dropout_p, dropout_generator)
+                                             dropout_p, dropout_keep)
         gen, warp_img, occlusion = self.decoder(
             self.kp_for_decoder(kp_s), self.kp_for_decoder(kp_d), dense_motion,
             img_down, source,

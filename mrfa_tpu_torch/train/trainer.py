@@ -11,6 +11,15 @@ parameters (the master weights), their gradients, the clip and Adam's
 moments stay f32, as in the JAX step, where optax sees f32 parameters and
 the layers cast inside the traced step. The caller sets the TF32 policy
 (the port runs with TF32 off).
+
+With a data mesh (`parallel.mesh`) each process steps on its own rows of the
+global batch, and the step equals one process's step on the global batch:
+the equivariance transforms and the TPSM dropout masks are drawn for the
+global batch from the same generators on every rank and sliced, BatchNorm
+takes the global batch's statistics, the gradients are averaged before the
+clip and the loss terms are averaged, so every rank keeps the same weights
+and reports the global loss. A data group of one rank takes the plain
+step: there is nothing to sync, average or slice.
 """
 from __future__ import annotations
 
@@ -19,8 +28,18 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
+from mrfa_tpu_torch.models.dense_motion import dropout_keep
 from mrfa_tpu_torch.models.mrfa import MRFA
+from mrfa_tpu_torch.nn.norm import sync_batch_norm
 from mrfa_tpu_torch.ops.tps import random_transform_params
+from mrfa_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    average_gradients,
+    average_scalars,
+    data_shard,
+    replicated,
+    shard_rows,
+)
 from mrfa_tpu_torch.train.optim import BG_SUBTREES, clip_inf_norm_subtrees, make_optimizer
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import frames_to_device, resolve_device
@@ -44,7 +63,10 @@ class Trainer:
     `compute_dtype` (None: f32, or torch.bfloat16) is the model's precision
     policy; the weights are never pre-cast (`cast_params_for_inference`
     refuses a model in training mode), so the optimizer keeps f32 masters
-    and the checkpoint tree is the f32 one.
+    and the checkpoint tree is the f32 one. `mesh` (a `parallel.mesh`
+    DeviceMesh) makes this process one data-parallel rank: `train_step`
+    takes this rank's rows of the global batch, and in a data group of more
+    than one rank the model is replicated from the group's first rank.
     """
 
     def __init__(
@@ -56,6 +78,7 @@ class Trainer:
         weights: Optional[Mapping[str, Any]] = None,
         dropout_generator: Optional[torch.Generator] = None,
         compute_dtype: Optional[torch.dtype] = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -86,6 +109,11 @@ class Trainer:
         self.dropout_generator = (dropout_generator if dropout_generator is not None
                                   else torch.Generator().manual_seed(1))
         self.steps = 0
+        self.batch_shard = data_shard(mesh)  # (this rank, the ranks) of the global batch
+        self.group = mesh.get_group(DATA_AXIS) if self.batch_shard[1] > 1 else None
+        if self.group is not None:
+            sync_batch_norm(self.model, self.group)
+            replicated(self.model, mesh)
 
     def _frames(self, x) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1], numpy or tensor -> (B, 3, H, W) f32 on the device."""
@@ -105,22 +133,36 @@ class Trainer:
         source = self._frames(batch["source"])
         driving = self._frames(batch["driving"])
         tp = self.cfg["train_params"]
-        transform = None
+        index, count = self.batch_shard
+
+        def rows(x):  # this rank's rows of a draw for the global batch
+            return x if count == 1 or x is None else shard_rows(x, index, count)
+
+        transform = keep = None
         if tp["loss_weights"].get("equivariance", 0) != 0:
             transform = random_transform_params(
-                self.generator, source.shape[0], **tp["transform_params"], device=self.device
+                self.generator, source.shape[0] * count, **tp["transform_params"],
+                device=self.device
             )
+            transform = transform._replace(theta=rows(transform.theta),
+                                           control_params=rows(transform.control_params))
+        if dropout_flag:
+            keep = rows(dropout_keep(source.shape[0] * count, self.model.dense_motion.motions,
+                                     dropout_p, self.dropout_generator, self.device))
         gen, warp_vis, losses, kp_s, kp_d = self.model(
             source, driving, compute_loss=True, transform=transform, use_bg=use_bg,
-            dropout_flag=dropout_flag, dropout_p=dropout_p,
-            dropout_generator=self.dropout_generator,
+            dropout_flag=dropout_flag, dropout_p=dropout_p, dropout_keep=keep,
         )
         total = sum(losses.values())
         self.model.zero_grad(set_to_none=True)
         total.backward()
+        if self.group is not None:
+            average_gradients(self.model.parameters(), self.group)
         self.apply_gradients(use_bg)
         self.steps += 1
         terms = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+        if self.group is not None:
+            terms = average_scalars(terms, self.group)
         extras = {"gen": gen.detach().permute(0, 2, 3, 1),
                   "warp_vis": warp_vis.detach().permute(0, 2, 3, 1),
                   "kp_s": kp_s.detach(), "kp_d": kp_d.detach()}

@@ -308,6 +308,41 @@ def test_animate_chunk_graph_equals_frame_by_frame(cuda):
     assert launches.counts()["corr_lookup"] - before == 6 * (FrameGraph.WARMUP_STEPS + 10)
 
 
+@pytest.mark.parametrize("devices", [("cuda:0", "cuda:0"), ("cuda:0", "cuda:1")],
+                         ids=["one_card", "two_cards"])
+def test_split_server_graph_on_each_device(cuda, devices):
+    """`serve_chunk` over replicas: each replica's graph is captured on its
+    own device, replays the frame step's 6 lookups, and gives frame by
+    frame what the one-device server's eager `serve` gives for its streams."""
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.serving import AnimationServer
+
+    if torch.cuda.device_count() < len(set(devices)):
+        pytest.skip(f"needs {len(set(devices))} cards")
+    torch.manual_seed(0)
+    weights = MRFA(_small_cfg(), device="cpu").state_dict()
+    split = AnimationServer(MRFA(_small_cfg(), device="cpu"), weights, devices=list(devices))
+    one = AnimationServer(MRFA(_small_cfg(), device="cpu"), weights)
+    rng = np.random.RandomState(0)
+    sources = rng.rand(4, 64, 64, 3).astype(np.float32)
+    frames = rng.rand(3, 4, 64, 64, 3).astype(np.float32)  # K=3, S=4
+    state = split.open_streams(sources, frames[0])
+    got = split.serve_chunk(state, frames)
+    again = split.serve_chunk(state, frames[::-1].copy())  # replays the graphs
+    for r in split.replicas:
+        assert r._graph.output.device == r.device
+        assert r._graph.launches["corr_lookup"] == 6
+    want = []
+    for rows in (slice(0, 2), slice(2, 4)):
+        st = one.open_streams(sources[rows], frames[0][rows])
+        want.append(torch.stack([one.serve(st, f[rows]) for f in frames]))
+    want = torch.cat(want, dim=1)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 4, 64, 64, 3) and got.device == torch.device("cuda:0")
+    assert torch.equal(got, want) and torch.equal(again, want.flip(0))
+    assert not torch.equal(got[0], got[1])
+
+
 class _Clips:
     """`FramesDataset`'s training items over in-memory random clips."""
 

@@ -55,7 +55,8 @@ print("ok")
     "module", ["mrfa_tpu_torch.serving", "mrfa_tpu_torch.models.kp_detector",
                "mrfa_tpu_torch.weights", "mrfa_tpu_torch.native", "mrfa_tpu_torch.utils.profiling",
                "mrfa_tpu_torch.cli.demo", "mrfa_tpu_torch.cli.convert",
-               "mrfa_tpu_torch.cli.convert_backbones", "mrfa_tpu_torch.data.dataset"],
+               "mrfa_tpu_torch.cli.convert_backbones", "mrfa_tpu_torch.data.dataset",
+               "mrfa_tpu_torch.parallel.mesh"],
 )
 def test_each_module_alone_loads_no_jax_and_no_mrfa_tpu(module):
     code = f"""

@@ -11,9 +11,18 @@
 - `read_video` and `FramesDataset` items against the JAX package's on a
   frame directory (both through their codecs) and a PNG strip (the port's
   reader against imageio), bit-equal, with the decoder counts.
+
+The JAX side runs on a private build of the JAX package's own codec source
+(the `jax_codec` fixture), not on the library `mrfa_tpu.native` makes in
+its package directory at first use: several test processes that start on a
+tree without that library all run `make` into the same file at once, and
+one that loads a half-written file keeps the failure for its lifetime.
 """
 import io
+import os
+import shutil
 import struct
+import subprocess
 import zlib
 
 import imageio.v2 as imageio
@@ -30,6 +39,24 @@ from mrfa_tpu_torch.utils.video import (
 )
 
 SIZE = 24
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_codec(tmp_path_factory):
+    """`mrfa_tpu.native` (and so `mrfa_tpu.data.dataset`'s native route) on
+    a library compiled for this module alone from the JAX package's
+    imagecodec.cpp, with its Makefile's flags."""
+    source = os.path.join(os.path.dirname(jnative.__file__), "imagecodec.cpp")
+    lib = str(tmp_path_factory.mktemp("jax_codec") / "libmrfa_imagecodec.so")
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    subprocess.run([cxx, "-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-o", lib, source,
+                    "-lpng", "-ljpeg", "-lpthread"], check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_SO", lib)
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_tried", False)
+        assert jnative.available()
+        yield lib
 
 
 def _frames(n, seed=0, h=SIZE, w=SIZE + 8):
