@@ -132,7 +132,19 @@ and runs these phases; any failure exits non-zero:
      "cuda:0"])` at S=8 against the one-device server (f32 `serve` within
      1e-4; bf16 `serve` and `serve_chunk` K=4 within phase 11b's mean gate,
      stream-frames/s beside phase 11b's S=8), 6 lookups a step on each
-     device. A run over several GPUs is not verified.
+     device. A run over several GPUs is not verified;
+ 18. the 'model' mesh axis: two ranks on the one card over gloo on a 1x2
+     ("data", "model") mesh, spawned right after phase 17b, each holding the
+     whole batch and half of each sample's correlation queries: (a) at
+     phase 4's setup in f32, the sharded eval forward against a one-process
+     forward (1e-5), one sharded `Trainer` step against the one-process card
+     step with phase 17b's gates, the ranks' weights and buffers bit-equal;
+     (b) config/vox1.yaml at 256 px, the sharded f32 forward at B=1 against
+     the one-process forward (1e-4), then bf16 `Trainer` steps at batch 10
+     (ms/step, each rank's peak memory beside a one-process step's, 6 / 6 /
+     17 / 22 launches a step on each rank, the weights and buffers
+     bit-equal after them); the lookup's and its backward's query counts,
+     read at the wrappers, half of the one-process ones.
 
 Stdout ends with a `{"kernels": [...], "sums": {...}}` line, the card's name and power limit
 (as nvidia-smi reports them) and, last, `{"ok": true, "device": {...}}`.
@@ -2585,6 +2597,16 @@ GLOO_BATCH = 5  # a rank's rows of the 256 px global batch of 10
 GLOO_WARMUP_STEPS = 1
 GLOO_TIMED_STEPS = 3
 SPLIT_DEVICES = ("cuda:0", "cuda:0")
+MODEL_RANKS = 2  # phase 18: a 1x2 mesh, each rank half of each sample's queries
+MODEL_AXIS_WARMUP_STEPS = 1
+MODEL_AXIS_TIMED_STEPS = 3
+MODEL_AXIS_PLAIN_STEPS = 2  # the one-process bf16 steps beside them (peak memory)
+# each sample's queries at the six refinement iterations, at 64 and 256 px
+QUERIES = {64: (4, 16, 64, 256, 256, 256), FRAME_SIZE: (64, 256, 1024, 4096, 4096, 4096)}
+# the sharded f32 eval forward against the one-process forward (frames in
+# [0, 1]); the JAX package holds its sharded forward to 2e-5
+# (tests/test_model_axis.py)
+MODEL_AXIS_FORWARD_TOL = {64: 1e-5, FRAME_SIZE: 1e-4}
 SPLIT_STREAMS = 8
 SPLIT_CHUNK_STREAMS = 4  # the f32 serve_chunk's: 2 streams a share
 # the bf16 split server against the one-device bf16 server: both bf16 on the
@@ -2720,7 +2742,7 @@ def phase_mesh_nccl(kernels, card, bf16_train):
         weights_before = [t.clone() for t in (*model.parameters(), *model.buffers())]
         terms = {k: torch.tensor(v, device="cuda") for k, v in got.items()}
         collectives = {
-            "replicated": lambda: replicated(model, mesh),
+            "replicated": lambda: replicated(model),
             "average_gradients": lambda: average_gradients(model.parameters(), group),
             "average_scalars": lambda: average_scalars(terms, group),
         }
@@ -2825,20 +2847,92 @@ def _moments_batch_norm():
         BatchNorm.forward = plain
 
 
+def _hold_to_one_process(label: str, cfg, weights, batch, meshed, got, result) -> None:
+    """Phase 17b's and 18a's gates, on rank 0: the mesh Trainer `meshed`'s
+    first step `got` on the global `batch` against a one-process card step
+    from `weights` (loss terms rtol 1e-4; each gradient and BatchNorm
+    statistic within 1e-3 of the tensor's max |g| (1e-5 for the statistics)
+    or twice (four times where that move exceeds the tensor's max |g|: a
+    gradient of rounding noise) what the one-process step moves when its
+    input frames move by 1e-6, when its BatchNorm takes the synced path's
+    arithmetic (`_moments_batch_norm`: the 64 px f32 step is ill
+    conditioned, and that rounding alone moves a few gradients past the
+    input floor on the CPU) or, as phase 12a's second floor, when cuDNN is
+    off). The readings go into `result`."""
+    import torch
+
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    def plain(b):
+        trainer = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 21),
+                          weights={k: v.clone() for k, v in weights.items()})
+        return trainer, trainer.step(b)
+
+    on_one, want = plain(batch)
+    floors = []
+    for i in range(3):
+        noise = torch.Generator().manual_seed(SEED + 30 + i)
+        floors.append(plain({k: v + 1e-6 * torch.randn(v.shape, generator=noise)
+                             for k, v in batch.items()})[0])
+    with _moments_batch_norm():
+        floors.append(plain(batch)[0])
+    with torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        floors.append(plain(batch)[0])
+    for k in (k for k in want if k != "gen"):
+        rel = abs(got[k] - want[k]) / abs(want[k])
+        check(np.isfinite(got[k]) and rel <= 1e-4, f"{label} loss {k}: rel {rel}")
+        result[f"rel_err_{k}"] = rel
+    mine = dict(meshed.model.named_parameters())
+    floor_p = [dict(t.model.named_parameters()) for t in floors]
+    ratios = []  # (err / tol, name, err, the floors' moves, 1e-3 max |g|)
+    noise_class = []  # (err / the largest move, name, max |g|) of the 4x class
+    for name, p in on_one.model.named_parameters():
+        if p.grad is None:
+            continue
+        scale = max(float(p.grad.abs().max()), 1e-30)
+        err = float((mine[name].grad - p.grad).abs().max())
+        moves = [float((fp[name].grad - p.grad).abs().max()) for fp in floor_p]
+        # a gradient that the floors move by more than its own size
+        # is rounding noise (the conv biases that BatchNorm follows,
+        # 0 in exact arithmetic): held within 4x the largest move
+        noise = (4 if max(moves) >= scale else 2) * max(moves)
+        ratios.append((err / max(1e-3 * scale, noise), name, err, moves, 1e-3 * scale))
+        if max(moves) >= scale:
+            noise_class.append((err / max(moves), name, scale))
+    ratios.sort(reverse=True)
+    noise_class.sort(reverse=True)
+    result["grads_worst_err_over_tol"] = ratios[:5]
+    # the readings behind the 4x rule: err over the largest move is
+    # what 2x would hold to 2 and 4x holds to 4
+    result["noise_class_grads"] = {"count": len(noise_class),
+                                   "worst_err_over_largest_move": noise_class[:5]}
+    print(f"{label} rank 0: {len(noise_class)} gradients moved by the floors beyond "
+          f"their max |g|; worst err / largest move (name, max |g|): {noise_class[:5]}",
+          flush=True)
+    print(f"{label} rank 0 gradients: {len(ratios)} tensors; worst err / tol "
+          f"(name, err, floors' moves: 3 inputs, moments BatchNorm, cuDNN off): "
+          f"{ratios[:5]}", flush=True)
+    for ratio, name, err, _, _ in ratios:
+        check(ratio <= 1.0, f"{label} gradient of {name}: err / tol {ratio:.3f}")
+    state, want_state = meshed.model.state_dict(), on_one.model.state_dict()
+    floor_state = [t.model.state_dict() for t in floors]
+    stat_err = 0.0
+    for key, t in want_state.items():
+        if key.endswith(("running_mean", "running_var")):
+            err = float((state[key] - t).abs().max())
+            noise = 2 * max(float((fs[key] - t).abs().max()) for fs in floor_state)
+            check(err <= max(1e-5, noise), f"{label} statistic {key}: err {err:.3e}")
+            stat_err = max(stat_err, err)
+    result["bn_stats_max_abs_err"] = stat_err
+
+
 def _gloo_rank(rank: int, port: int, out_dir: str) -> None:
     """Phase 17b, one rank of a gloo world of GLOO_RANKS on the one card
     (started by `torch.multiprocessing.spawn`): at phase 4's setup, one mesh
     step on this rank's rows of a global batch, held on rank 0 against a
     one-process card step on the global batch with phase 4's tolerances
-    (loss terms rtol 1e-4; each gradient and BatchNorm statistic within
-    1e-3 of the tensor's max |g| (1e-5 for the statistics) or twice (four
-    times where that move exceeds the tensor's max |g|: a gradient of
-    rounding noise) what the one-process step moves when its input frames
-    move by 1e-6, when
-    its BatchNorm takes the synced path's arithmetic (`_moments_batch_norm`:
-    the 64 px f32 step is ill conditioned, and that rounding alone moves a
-    few gradients past the input floor on the CPU) or, as phase 12a's
-    second floor, when cuDNN is off), the ranks' weights equal after the
+    (`_hold_to_one_process`), the ranks' weights equal after the
     update; then config/vox1.yaml at 256 px
     under the bf16 policy, GLOO_BATCH rows a rank: ms/step and the launches
     a step. Writes its numbers to out_dir/rank<rank>.json."""
@@ -2881,69 +2975,7 @@ def _gloo_rank(rank: int, port: int, out_dir: str) -> None:
         check(result["weights_spread_64px"] == 0.0, f"phase17b rank {rank}: weights differ")
         del flat, first
         if rank == 0:
-            def plain(b):
-                trainer = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 21),
-                                  weights={k: v.clone() for k, v in weights.items()})
-                return trainer, trainer.step(b)
-
-            on_one, want = plain(batch)
-            floors = []
-            for i in range(3):
-                noise = torch.Generator().manual_seed(SEED + 30 + i)
-                floors.append(plain({k: v + 1e-6 * torch.randn(v.shape, generator=noise)
-                                     for k, v in batch.items()})[0])
-            with _moments_batch_norm():
-                floors.append(plain(batch)[0])
-            with torch.backends.cudnn.flags(enabled=False, benchmark=False, deterministic=False,
-                                            allow_tf32=False):
-                floors.append(plain(batch)[0])
-            for k in (k for k in want if k != "gen"):
-                rel = abs(got[k] - want[k]) / abs(want[k])
-                check(np.isfinite(got[k]) and rel <= 1e-4, f"phase17b loss {k}: rel {rel}")
-                result[f"rel_err_{k}"] = rel
-            mine = dict(meshed.model.named_parameters())
-            floor_p = [dict(t.model.named_parameters()) for t in floors]
-            ratios = []  # (err / tol, name, err, the floors' moves, 1e-3 max |g|)
-            noise_class = []  # (err / the largest move, name, max |g|) of the 4x class
-            for name, p in on_one.model.named_parameters():
-                if p.grad is None:
-                    continue
-                scale = max(float(p.grad.abs().max()), 1e-30)
-                err = float((mine[name].grad - p.grad).abs().max())
-                moves = [float((fp[name].grad - p.grad).abs().max()) for fp in floor_p]
-                # a gradient that the floors move by more than its own size
-                # is rounding noise (the conv biases that BatchNorm follows,
-                # 0 in exact arithmetic): held within 4x the largest move
-                noise = (4 if max(moves) >= scale else 2) * max(moves)
-                ratios.append((err / max(1e-3 * scale, noise), name, err, moves, 1e-3 * scale))
-                if max(moves) >= scale:
-                    noise_class.append((err / max(moves), name, scale))
-            ratios.sort(reverse=True)
-            noise_class.sort(reverse=True)
-            result["grads_worst_err_over_tol"] = ratios[:5]
-            # the readings behind the 4x rule: err over the largest move is
-            # what 2x would hold to 2 and 4x holds to 4
-            result["noise_class_grads"] = {"count": len(noise_class),
-                                           "worst_err_over_largest_move": noise_class[:5]}
-            print(f"phase17b rank 0: {len(noise_class)} gradients moved by the floors beyond "
-                  f"their max |g|; worst err / largest move (name, max |g|): {noise_class[:5]}",
-                  flush=True)
-            print(f"phase17b rank 0 gradients: {len(ratios)} tensors; worst err / tol "
-                  f"(name, err, floors' moves: 3 inputs, moments BatchNorm, cuDNN off): "
-                  f"{ratios[:5]}", flush=True)
-            for ratio, name, err, _, _ in ratios:
-                check(ratio <= 1.0, f"phase17b gradient of {name}: err / tol {ratio:.3f}")
-            state, want_state = meshed.model.state_dict(), on_one.model.state_dict()
-            floor_state = [t.model.state_dict() for t in floors]
-            stat_err = 0.0
-            for key, t in want_state.items():
-                if key.endswith(("running_mean", "running_var")):
-                    err = float((state[key] - t).abs().max())
-                    noise = 2 * max(float((fs[key] - t).abs().max()) for fs in floor_state)
-                    check(err <= max(1e-5, noise), f"phase17b statistic {key}: err {err:.3e}")
-                    stat_err = max(stat_err, err)
-            result["bn_stats_max_abs_err"] = stat_err
-            del on_one, floors, floor_p, floor_state
+            _hold_to_one_process("phase17b", cfg, weights, batch, meshed, got, result)
         del meshed, weights
         torch.cuda.empty_cache()
 
@@ -3016,6 +3048,273 @@ def phase_mesh_gloo(card, work: Path) -> dict:
     print("phase17b " + json.dumps(result))
     return {f"mesh_gloo_rank{r['rank']}": {k: r["launches_64px"][k] + r["launches_256px"][k]
                                            for k in r["launches_64px"]} for r in ranks}
+
+
+@contextlib.contextmanager
+def _recorded_query_counts(seen: dict):
+    """Append the BQ of every call of the lookup and its backward wrappers
+    to seen["corr_lookup"] and seen["corr_lookup_bwd"]."""
+    from mrfa_tpu_torch.ops.corr_lookup import CorrLookup, CorrLookupBwd
+
+    calls = {cls: cls.__call__ for cls in (CorrLookup, CorrLookupBwd)}
+
+    def recording(cls):
+        def record(self, c0, *args):
+            seen.setdefault(cls.name, []).append(c0.shape[0])
+            return calls[cls](self, c0, *args)
+        return record
+
+    for cls in calls:
+        cls.__call__ = recording(cls)
+    try:
+        yield
+    finally:
+        for cls, call in calls.items():
+            cls.__call__ = call
+
+
+def _check_query_counts(seen: dict, rows: int, size: int, steps: int, label: str,
+                        backward: bool) -> None:
+    """The lookups (and their backwards) of `steps` forwards of `rows` rows
+    at `size` px each took half of each sample's queries."""
+    want = [rows * nq // MODEL_RANKS for nq in QUERIES[size]]
+    expect = {"corr_lookup": want * steps}
+    if backward:
+        expect["corr_lookup_bwd"] = want[::-1] * steps
+    check(seen == expect, f"{label}: query counts {seen} != {expect}")
+
+
+def _generated(model, source, driving):
+    """The generated frames of an eval-mode `model` on (B, H, W, 3) frames
+    on the card."""
+    import torch
+
+    with torch.no_grad():
+        return model(source.permute(0, 3, 1, 2), driving.permute(0, 3, 1, 2),
+                     compute_loss=False)[0]
+
+
+def _forward_gate(got, want, label: str) -> float:
+    """Max abs of the sharded forward's frames against the one-process
+    forward's, gated by MODEL_AXIS_FORWARD_TOL."""
+    import torch
+
+    err = float((got - want).abs().max())
+    tol = MODEL_AXIS_FORWARD_TOL[got.shape[-1]]
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"{label} sharded eval forward: max abs {err:.3e} > {tol:.0e}")
+    return err
+
+
+def _spread(module) -> float:
+    """The largest distance of this rank's parameters and buffers from
+    global rank 0's."""
+    import torch.distributed as dist
+
+    worst = 0.0
+    for t in module.state_dict().values():
+        first = t.detach().clone()
+        dist.broadcast(first, src=0)
+        if t.numel():
+            worst = max(worst, float((t.detach().double() - first.double()).abs().max()))
+    return worst
+
+
+def _model_axis_rank(rank: int, port: int, out_dir: str) -> None:
+    """Phase 18, one rank of a 1x2 ("data", "model") mesh on the one card
+    over gloo (started by `torch.multiprocessing.spawn`): both ranks hold
+    the whole batch and half of each sample's correlation queries. (a) At
+    phase 4's setup, f32: the sharded eval forward against a one-process
+    forward from the same weights (MODEL_AXIS_FORWARD_TOL), one sharded
+    `Trainer` step held on rank 0 to the one-process card step
+    (`_hold_to_one_process`), the ranks' weights and buffers bit-equal.
+    (b) config/vox1.yaml at 256 px: the sharded f32 eval forward at B=1
+    against the one-process forward, then bf16 `Trainer` steps at batch
+    TRAIN_BATCH (ms/step, peak memory, launches a step, the weights and
+    buffers bit-equal after them) and, on rank 0, one-process bf16 steps
+    (ms/step, peak memory). The lookups' query counts are read at the
+    wrappers. Writes its numbers to out_dir/rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from mrfa_tpu_torch.models.mrfa import MRFA
+    from mrfa_tpu_torch.models.raft import shard_queries
+    from mrfa_tpu_torch.ops import launches as launch_registry
+    from mrfa_tpu_torch.parallel.mesh import data_shard, make_mesh, model_shard
+    from mrfa_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {k.name: k for k in launch_registry.kernels()}
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=MODEL_RANKS)
+    try:
+        mesh = make_mesh(1, MODEL_RANKS, device_type="cuda")
+        check(data_shard(mesh) == (0, 1) and model_shard(mesh) == (rank, MODEL_RANKS),
+              f"phase18 rank {rank}: mesh coordinates {data_shard(mesh)}, {model_shard(mesh)}")
+        result = {"rank": rank, "launches": dict.fromkeys(launch_counts(kernels), 0)}
+
+        def count(fn):  # fn() with its launches added to this rank's path
+            reset(kernels)
+            out = fn()
+            for k, v in launch_counts(kernels).items():
+                result["launches"][k] += v
+            return out
+
+        # (a) phase 4's setup, f32
+        cfg = small_cfg(losses=True)
+        torch.manual_seed(SEED + 20)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the random VGG19's warning
+            meshed = Trainer(cfg, generator=torch.Generator().manual_seed(SEED + 21), mesh=mesh)
+        weights = {k: v.clone() for k, v in meshed.model.state_dict().items()}
+        batch = {k: smooth_frames(2, 64, torch.Generator().manual_seed(SEED + i), "cpu")
+                 for i, k in enumerate(("source", "driving"), start=22)}
+        frames = [batch[k].cuda() for k in ("source", "driving")]
+        meshed.model.eval()
+        seen: dict = {}
+        with _recorded_query_counts(seen):
+            got = count(lambda: _generated(meshed.model, *frames))
+        _check_query_counts(seen, 2, 64, 1, "phase18a eval", backward=False)
+        plain = MRFA(cfg)
+        plain.load_state_dict(weights)
+        result["forward_64px_max_abs"] = _forward_gate(got, _generated(plain.eval(), *frames),
+                                                       "phase18a")
+        del plain, frames
+        meshed.model.train()
+        seen = {}
+        with _recorded_query_counts(seen):
+            got = count(lambda: meshed.step(batch))
+        _check_query_counts(seen, 2, 64, 1, "phase18a step", backward=True)
+        result["step_64px_bq"] = seen
+        if rank == 0:
+            _hold_to_one_process("phase18a", cfg, weights, batch, meshed, got, result)
+        result["weights_spread_64px"] = _spread(meshed.model)
+        check(result["weights_spread_64px"] == 0.0,
+              f"phase18a rank {rank}: weights or buffers differ between the ranks")
+        del meshed, weights
+        torch.cuda.empty_cache()
+
+        # (b) config/vox1.yaml at full width, 256 px
+        torch.manual_seed(SEED)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            trainer = Trainer(vox1_cfg(), generator=torch.Generator().manual_seed(SEED),
+                              compute_dtype=torch.bfloat16, mesh=mesh)
+        state = trainer.model.state_dict()  # f32 masters, replicated from rank 0
+        sharded, plain = MRFA(vox1_cfg()), MRFA(vox1_cfg())
+        for m in (sharded, plain):
+            m.load_state_dict(state)
+            m.eval()
+        shard_queries(sharded, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+        frames = [smooth_frames(1, FRAME_SIZE, gen, "cuda") for _ in range(2)]
+        seen = {}
+        with _recorded_query_counts(seen):
+            got = count(lambda: _generated(sharded, *frames))
+        _check_query_counts(seen, 1, FRAME_SIZE, 1, "phase18b eval", backward=False)
+        result["forward_256px_max_abs"] = _forward_gate(got, _generated(plain, *frames),
+                                                        "phase18b")
+        del sharded, plain, frames, state, got
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        n_steps = MODEL_AXIS_WARMUP_STEPS + MODEL_AXIS_TIMED_STEPS
+        batches = [{k: smooth_frames(TRAIN_BATCH, FRAME_SIZE, gen, "cuda")
+                    for k in ("source", "driving")} for _ in range(n_steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        seen = {}
+        with _recorded_query_counts(seen):
+            losses = [trainer.step(b) for b in batches[:MODEL_AXIS_WARMUP_STEPS]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [trainer.step(b) for b in batches[MODEL_AXIS_WARMUP_STEPS:]]
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        counts = launch_counts(kernels)
+        for name, per_step in PER_STEP.items():
+            check(counts[name] == per_step * n_steps,
+                  f"phase18b rank {rank}: {name} launches {counts[name]} over {n_steps} steps")
+            result["launches"][name] += counts[name]
+        _check_query_counts(seen, TRAIN_BATCH, FRAME_SIZE, n_steps, "phase18b steps",
+                            backward=True)
+        check(all(np.isfinite(o[k]) for o in losses for k in o if k != "gen"), "phase18b loss")
+        result.update({
+            "ms_per_step": elapsed / MODEL_AXIS_TIMED_STEPS * 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step_256px": {k: v / n_steps for k, v in counts.items()},
+            "lookup_bq_per_step": seen["corr_lookup"][:6],
+            "lookup_bwd_bq_per_step": seen["corr_lookup_bwd"][:6],
+            "steps_timed": MODEL_AXIS_TIMED_STEPS, "loss_last": losses[-1]["loss"],
+        })
+        result["weights_spread_256px"] = _spread(trainer.model)
+        check(result["weights_spread_256px"] == 0.0,
+              f"phase18b rank {rank}: weights or buffers differ between the ranks after "
+              f"{n_steps} bf16 steps")
+        del trainer, losses
+        torch.cuda.empty_cache()
+        if rank == 0:  # the one-process bf16 step beside them, in this process alone
+            torch.manual_seed(SEED)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                one = Trainer(vox1_cfg(), generator=torch.Generator().manual_seed(SEED),
+                              compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            one.step(batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches[1:1 + MODEL_AXIS_PLAIN_STEPS]:
+                one.step(b)
+            torch.cuda.synchronize()
+            result["one_process_ms_per_step"] = ((time.perf_counter() - t0)
+                                                 / MODEL_AXIS_PLAIN_STEPS * 1e3)
+            result["one_process_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            del one
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    except BaseException:
+        import traceback
+
+        print(f"phase18 rank {rank} failed:\n{traceback.format_exc()}", flush=True)
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_model_axis(card, work: Path) -> dict:
+    """Phase 18: MODEL_RANKS processes on the one card over gloo, a 1x2
+    ("data", "model") mesh (`_model_axis_rank`). gloo moves CUDA tensors
+    through the host, so its ms/step measures gloo over PCIe and the host,
+    not NCCL between cards. Returns each rank's launch counts."""
+    import gc
+
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = work / "model_axis"
+    out_dir.mkdir()
+    mp.spawn(_model_axis_rank, args=(_free_port(), str(out_dir)), nprocs=MODEL_RANKS, join=True)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(MODEL_RANKS)]
+    result = {
+        "phase": "model_axis", "config": "config/vox1.yaml mtia; phase 4's 64 px model",
+        "size": FRAME_SIZE, "mesh": [1, MODEL_RANKS],
+        "backend": "gloo (one card, collectives through the host)",
+        "batch_per_rank": TRAIN_BATCH, "queries_per_rank": f"1/{MODEL_RANKS} of each sample's",
+        "dtype": "f32 forwards; bfloat16 policy steps, f32 masters", "tf32": False, "card": card,
+        "ms_per_step_by_rank": [r["ms_per_step"] for r in ranks],
+        "peak_memory_bytes_by_rank": [r["peak_memory_bytes"] for r in ranks],
+        "one_process_ms_per_step": ranks[0]["one_process_ms_per_step"],
+        "one_process_peak_memory_bytes": ranks[0]["one_process_peak_memory_bytes"],
+        "ranks": ranks, "multi_gpu": "not verified (one card)",
+    }
+    print("phase18 " + json.dumps(result))
+    return {f"model_axis_rank{r['rank']}": r["launches"] for r in ranks}
 
 
 def _check_replica_graphs(split, name: str) -> None:
@@ -3201,14 +3500,16 @@ def main() -> int:
     stamp("phase 1")
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
-    # phase 17b now, while this process holds little of the card's memory:
-    # its two ranks share the card with it
+    # phases 17b and 18 now, while this process holds little of the card's
+    # memory: their two ranks share the card with it
     work = Path(tempfile.mkdtemp(prefix="smoke_run_", dir=build))
     try:
         gloo_paths = phase_mesh_gloo(card, work)
+        stamp("phase 17b")
+        gloo_paths.update(phase_model_axis(card, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    stamp("phase 17b")
+    stamp("phase 18")
     phase_gpu_vs_cpu()
     phase_gpu_vs_cpu(prior_only=True)
     phase_gpu_vs_cpu_bf16()

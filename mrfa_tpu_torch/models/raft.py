@@ -30,6 +30,15 @@ iterations, with no activation checkpointing (the JAX package's remat
 regions and in-iteration level building exist for a 16 GB TPU chip; the
 training step fits the 80 GB card without them). The final image warp stays
 separate from the last context warp.
+
+`shard_queries` splits each sample's correlation queries over a mesh's
+'model' group (the JAX package's `maybe_constrain(c0, "data", "model",
+None)`): each rank builds the levels of its contiguous block of the queries
+against the whole source features, looks them up, and gathers the 98-channel
+windows of every block back before the motion encoder; everything else runs
+whole on each rank. The driving and source features and each iteration's
+lookup coordinates pass through `group_copy`, whose backward sums the
+blocks' partial cotangents.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -46,6 +56,7 @@ from mrfa_tpu_torch.ops.corr_lookup import CorrLookupFn
 from mrfa_tpu_torch.ops.grid import coords_grid, kp2gaussian
 from mrfa_tpu_torch.ops.resize import avg_pool, resize_bilinear
 from mrfa_tpu_torch.ops.sampler import grid_sample, sample_pixel
+from mrfa_tpu_torch.parallel.mesh import MODEL_AXIS, gather_rows, group_copy, model_shard
 
 
 def _id_grid(res: int, like: torch.Tensor) -> torch.Tensor:
@@ -92,6 +103,8 @@ class RefineFlow(nn.Module):
 
 
 class RaftFlow(nn.Module):
+    query_group = None  # set by `shard_queries`
+
     def __init__(
         self,
         prior_only: bool = False,
@@ -147,17 +160,28 @@ class RaftFlow(nn.Module):
             "f_s_p": avg_pool(k_s, 2).flatten(2).transpose(1, 2).contiguous(),
         }
 
+    def _own_queries(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous block of each sample's queries of the (B, nq,
+        C) `x` under `shard_queries`; all of them otherwise."""
+        group = self.query_group
+        if group is None:
+            return x
+        index, count = dist.get_rank(group), dist.get_world_size(group)
+        nq = x.shape[1]
+        if nq % count:
+            raise ValueError(f"{nq} queries do not split over {count} model ranks")
+        per = nq // count
+        return x[:, index * per:(index + 1) * per]
+
     def _build_levels(self, fd_sp: torch.Tensor, f_s: torch.Tensor, f_s_p: torch.Tensor):
         """(B*nq, h, w) and (B*nq, h/2, w/2) y-major maps of the (B, dim, hq, wq)
-        queries against the source features; the 1/sqrt(dim) volume scale is
-        folded into the queries."""
-        b = fd_sp.shape[0]
-        fd = fd_sp.flatten(2).transpose(1, 2) * self.scale  # (B, nq, dim)
-        nq = fd.shape[1]
-        map0 = torch.matmul(fd, f_s.transpose(1, 2)).reshape(b * nq, self.h, self.w)
-        map1 = torch.matmul(fd, f_s_p.transpose(1, 2)).reshape(
-            b * nq, self.h // 2, self.w // 2
-        )
+        queries (this rank's block of them under `shard_queries`) against the
+        source features; the 1/sqrt(dim) volume scale is folded into the
+        queries."""
+        fd = self._own_queries(fd_sp.flatten(2).transpose(1, 2) * self.scale)  # (B, nq, dim)
+        bq = fd.shape[0] * fd.shape[1]
+        map0 = torch.matmul(fd, f_s.transpose(1, 2)).reshape(bq, self.h, self.w)
+        map1 = torch.matmul(fd, f_s_p.transpose(1, 2)).reshape(bq, self.h // 2, self.w // 2)
         return map0, map1
 
     def _refine_iter(self, i, flow, occlusion, d_f_pre, d_occ_pre, map0, map1,
@@ -176,8 +200,14 @@ class RaftFlow(nn.Module):
         else:
             flow_sample, id_sample = flow, id_grid
         hq = flow_sample.shape[-1]
-        coords = _to_grid((flow_sample + id_sample) * scale).reshape(-1, 2).contiguous()
-        corr = CorrLookupFn.apply(map0, map1, coords)  # (B*hq*hq, 98)
+        coords = _to_grid((flow_sample + id_sample) * scale).reshape(b, -1, 2)
+        group = self.query_group
+        if group is not None:  # the flow's cotangent through each rank's block of coords
+            coords = self._own_queries(group_copy(coords, group))
+        coords = coords.reshape(-1, 2).contiguous()
+        corr = CorrLookupFn.apply(map0, map1, coords)  # (B*hq*hq, 98), this rank's queries
+        if group is not None:
+            corr = gather_rows(corr.reshape(b, -1, corr.shape[-1]), group)
         corr = corr.reshape(b, hq, hq, -1).permute(0, 3, 1, 2)
         if i > bri:
             corr = resize_bilinear(corr, res, align_corners=True)
@@ -277,6 +307,8 @@ class RaftFlow(nn.Module):
 
         g_d = kp2gaussian(kp_d, (h, w), 0.1) + self.pos_embedding
         q_d = self.kp_head(self.kp(g_d))  # (B, dim, h, w) driving query features
+        if self.query_group is not None:  # each rank's lookups use a part of each
+            q_d, f_s, f_s_p = (group_copy(t, self.query_group) for t in (q_d, f_s, f_s_p))
 
         # correlation levels per driving resolution; the full-resolution
         # levels are built once and shared by the last iterations
@@ -320,3 +352,15 @@ class RaftFlow(nn.Module):
             for o in out_occlusion + [torch.sigmoid(init_occlusion)]
         ]
         return out, warp_img, torch.cat(vis, dim=3)
+
+
+def shard_queries(model: nn.Module, mesh) -> nn.Module:
+    """Every `RaftFlow` of `model` splits each sample's correlation queries
+    over `mesh`'s model group, each rank taking its contiguous block (a
+    group of one rank: all of them again). The ranks of the group must hold
+    the same rows and weights."""
+    group = mesh.get_group(MODEL_AXIS) if model_shard(mesh)[1] > 1 else None
+    for m in model.modules():
+        if isinstance(m, RaftFlow):
+            m.query_group = group
+    return model

@@ -1,21 +1,27 @@
-"""The data mesh and the collectives of data-parallel training.
+"""The ("data", "model") mesh and the collectives of multi-device training.
 
 Counterpart of mrfa_tpu/parallel/mesh.py (the reference's DDP over NCCL:
-run.py:48-59, train.py:43-48). One process per device; the global batch is
-split over the 'data' dimension of a `DeviceMesh` and the parameters are
-replicated. The cross-replica reductions that GSPMD inserts into the JAX
-step are explicit calls here, over the mesh's data group:
-  - BatchNorm's batch statistics (`nn.norm.BatchNorm`, through
-    `all_reduce_sum`, whose backward sums the cotangents);
-  - the gradients, averaged in one coalesced all_reduce before the clip
-    (`average_gradients`);
-  - the loss terms (`average_scalars`), so every rank reports the global
-    batch's.
+run.py:48-59, train.py:43-48). One process per device. The global batch is
+split over the mesh's 'data' dimension and the parameters are replicated
+over the whole world. The 'model' dimension splits each sample's
+correlation queries (`models.raft.shard_queries`, the JAX package's
+`maybe_constrain(c0, "data", "model", None)`): the ranks of a model group
+hold the same rows, each builds and looks up its own contiguous block of
+the queries, and the lookups are gathered back (`gather_rows`); the
+features the blocks are built from pass through `group_copy`, whose
+backward sums the partial cotangents over the group. The cross-replica
+reductions that GSPMD inserts into the JAX step are explicit calls here
+(`train.Trainer` makes them):
+  - BatchNorm's batch statistics over the data group (`nn.norm.BatchNorm`,
+    through `all_reduce_sum`, whose backward sums the cotangents);
+  - the gradients, averaged over the world in one coalesced all_reduce
+    before the clip (`average_gradients`);
+  - the loss terms, averaged over the world (`average_scalars`), so every
+    rank reports the global batch's.
 The gradient average is a plain call rather than `DistributedDataParallel`:
 the background predictor's parameters take part in bg steps only, and the
 step stays "the gradient of the global-batch mean" with its clip and its two
-optimizers as they are. The 'model' dimension has size 1: the query sharding
-of the correlation volume over it is not ported.
+optimizers as they are.
 """
 from __future__ import annotations
 
@@ -61,13 +67,14 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               device_type: str = "cuda") -> DeviceMesh:
     """A ("data", "model") `DeviceMesh` over the initialized world, which
     must hold exactly n_data * n_model ranks (n_data: the world over
-    n_model when None)."""
+    n_model when None). Rank r sits at (r // n_model, r % n_model): the data
+    index is the slow one, as in the JAX mesh's reshape(n_data, n_model)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group (init_distributed)")
-    if n_model != 1:
-        raise NotImplementedError("the 'model' dimension is not ported: n_model must be 1")
     world = dist.get_world_size()
     if n_data is None:
+        if n_model < 1 or world % n_model:
+            raise ValueError(f"{world} ranks do not split over n_model={n_model}")
         n_data = world // n_model
     if n_data * n_model != world:
         raise ValueError(f"a {n_data}x{n_model} mesh needs a world of {n_data * n_model}, "
@@ -81,6 +88,14 @@ def data_shard(mesh: Optional[DeviceMesh]) -> Tuple[int, int]:
     if mesh is None:
         return 0, 1
     return mesh.get_local_rank(DATA_AXIS), mesh.size(mesh.mesh_dim_names.index(DATA_AXIS))
+
+
+def model_shard(mesh: Optional[DeviceMesh]) -> Tuple[int, int]:
+    """(this rank's index, the count) along the mesh's model dimension; (0,
+    1) without a mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank(MODEL_AXIS), mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
 
 
 def shard_rows(x, index: int, count: int):
@@ -110,14 +125,13 @@ def _coalesced(tensors: Iterable[torch.Tensor], op: Callable[[torch.Tensor], Non
             t.copy_(chunk.view_as(t))
 
 
-def replicated(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
-    """`module` with its parameters and buffers broadcast from the data
-    group's first rank, so that every rank starts from the same replica."""
-    group = mesh.get_group(DATA_AXIS)
-    src = dist.get_global_rank(group, 0)
+def replicated(module: nn.Module) -> nn.Module:
+    """`module` with its parameters and buffers broadcast from global rank 0
+    to every rank of the world, so that every rank starts from the same
+    replica."""
     with torch.no_grad():
         _coalesced([*module.parameters(), *module.buffers()],
-                   lambda flat: dist.broadcast(flat, src=src, group=group))
+                   lambda flat: dist.broadcast(flat, src=0))
     return module
 
 
@@ -164,3 +178,51 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The differentiable sum of `x` over `group`."""
     return _AllReduceSum.apply(x, group)
+
+
+class _GroupCopy(torch.autograd.Function):
+    """Identity whose backward sums the cotangents over a group: a value
+    each rank of the group holds whole and uses for its own share of the
+    work, so that each rank's cotangent is partial."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def group_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """`x`, with the cotangents of its uses on every rank of `group` summed."""
+    return _GroupCopy.apply(x, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Each rank's (B, n, C) block, gathered along the second axis in the
+    group's rank order into (B, M n, C); the backward keeps this rank's
+    block of the cotangent, which every rank computes whole."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        index, count = dist.get_rank(ctx.group), dist.get_world_size(ctx.group)
+        per = grad.shape[1] // count
+        return grad[:, index * per:(index + 1) * per], None
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The differentiable gather of every rank's (B, n, C) `x` of `group`
+    into (B, M n, C), rank 0's rows first."""
+    return _GatherRows.apply(x, group)

@@ -12,14 +12,24 @@ moments stay f32, as in the JAX step, where optax sees f32 parameters and
 the layers cast inside the traced step. The caller sets the TF32 policy
 (the port runs with TF32 off).
 
-With a data mesh (`parallel.mesh`) each process steps on its own rows of the
-global batch, and the step equals one process's step on the global batch:
-the equivariance transforms and the TPSM dropout masks are drawn for the
-global batch from the same generators on every rank and sliced, BatchNorm
-takes the global batch's statistics, the gradients are averaged before the
-clip and the loss terms are averaged, so every rank keeps the same weights
-and reports the global loss. A data group of one rank takes the plain
-step: there is nothing to sync, average or slice.
+With a mesh (`parallel.mesh`) each process steps on its own rows of the
+global batch (its data coordinate) and, on a model dimension of more than
+one rank, looks up its own block of each sample's correlation queries
+(`models.raft.shard_queries`). The step equals one process's step on the
+global batch: the equivariance transforms and the TPSM dropout masks are
+drawn for the global batch from the same generators on every rank and
+sliced by the data coordinate, BatchNorm takes the global batch's
+statistics over the data group, the gradients are averaged before the clip
+and the loss terms are averaged, so every rank keeps the same weights and
+reports the global loss. The gradients and the loss terms are averaged
+over the whole world, not the data group: the ranks of a model group hold
+equal values in exact arithmetic, so the mean is the same, and the world's
+one all_reduce leaves every rank's weights bit-equal even where the card's
+replicated compute is not deterministic (the bf16 splat adds a bin's
+samples in slot-claim order). BatchNorm's statistics stay over the data
+group: its inputs are the same bits on every rank of a model group (the
+gathered lookups are, and the forward is deterministic). A world of one
+rank takes the plain step: there is nothing to sync, average or slice.
 """
 from __future__ import annotations
 
@@ -27,9 +37,11 @@ import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from mrfa_tpu_torch.models.dense_motion import dropout_keep
 from mrfa_tpu_torch.models.mrfa import MRFA
+from mrfa_tpu_torch.models.raft import shard_queries
 from mrfa_tpu_torch.nn.norm import sync_batch_norm
 from mrfa_tpu_torch.ops.tps import random_transform_params
 from mrfa_tpu_torch.parallel.mesh import (
@@ -37,6 +49,7 @@ from mrfa_tpu_torch.parallel.mesh import (
     average_gradients,
     average_scalars,
     data_shard,
+    model_shard,
     replicated,
     shard_rows,
 )
@@ -64,9 +77,11 @@ class Trainer:
     policy; the weights are never pre-cast (`cast_params_for_inference`
     refuses a model in training mode), so the optimizer keeps f32 masters
     and the checkpoint tree is the f32 one. `mesh` (a `parallel.mesh`
-    DeviceMesh) makes this process one data-parallel rank: `train_step`
-    takes this rank's rows of the global batch, and in a data group of more
-    than one rank the model is replicated from the group's first rank.
+    DeviceMesh over the world) makes this process one rank: `train_step`
+    takes this rank's rows of the global batch (its data coordinate's), the
+    model's correlation queries are split over the model dimension when it
+    holds more than one rank, and in a world of more than one rank the model
+    is replicated from global rank 0.
     """
 
     def __init__(
@@ -110,10 +125,14 @@ class Trainer:
                                   else torch.Generator().manual_seed(1))
         self.steps = 0
         self.batch_shard = data_shard(mesh)  # (this rank, the ranks) of the global batch
-        self.group = mesh.get_group(DATA_AXIS) if self.batch_shard[1] > 1 else None
+        world = dist.get_world_size() if mesh is not None else 1
+        self.group = dist.group.WORLD if world > 1 else None  # the gradient and loss means
+        if self.batch_shard[1] > 1:
+            sync_batch_norm(self.model, mesh.get_group(DATA_AXIS))
+        if model_shard(mesh)[1] > 1:
+            shard_queries(self.model, mesh)
         if self.group is not None:
-            sync_batch_norm(self.model, self.group)
-            replicated(self.model, mesh)
+            replicated(self.model)
 
     def _frames(self, x) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1], numpy or tensor -> (B, 3, H, W) f32 on the device."""

@@ -25,9 +25,6 @@ references are computed here while they run.
 import glob
 import os
 import shutil
-import socket
-import subprocess
-import sys
 import warnings
 
 import jax
@@ -45,10 +42,10 @@ from mrfa_tpu_torch.models.mrfa import MRFA
 from mrfa_tpu_torch.serving import AnimationServer
 from tests import torch_distributed_worker as worker
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
-    loop_config, mtia_cfg, one_torch_thread, smooth_image, write_png_videos,
+    loop_config, mtia_cfg, one_torch_thread, smooth_image, spawn_ranks, wait_ranks,
+    write_png_videos,
 )
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
 RUN_TIMEOUT_S = 900
 # the 2-rank f64 step against the one-process f64 step on the global batch:
@@ -66,46 +63,6 @@ BN_TOL = {"f32": 1e-5, "f64": 1e-12}
 # rounding of the batch-size-dependent convolution kernels, carried through
 # six refinement iterations (1.5e-6 seen)
 SERVER_TOL = 1e-5
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(args, work, cwd=REPO):
-    """RANKS processes of `python args` with torchrun's environment, their
-    output in work/rank<r>.log."""
-    port = _free_port()
-    procs = []
-    for rank in range(RANKS):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(RANKS), LOCAL_RANK=str(rank),
-                   MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                   PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
-        log = open(os.path.join(work, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen([sys.executable, *args], cwd=cwd, env=env, stdout=log,
-                                       stderr=subprocess.STDOUT), log))
-    return procs
-
-
-def _wait(procs, work):
-    """Wait for the ranks; every rank's output, failing if one failed."""
-    codes = []
-    try:
-        for proc, log in procs:
-            codes.append(proc.wait(timeout=RUN_TIMEOUT_S))
-            log.close()
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    logs = [open(os.path.join(work, f"rank{r}.log")).read() for r in range(RANKS)]
-    assert codes == [0] * RANKS, "\n".join(f"rank {r}: {log[-3000:]}" for r, log in
-                                           enumerate(logs))
-    return logs
 
 
 def _bn_references(dtype: str) -> dict:
@@ -146,7 +103,7 @@ def loop_ranks(tmp_path_factory):
     overlap: (its directory, its processes). Its ~2.7 GB of checkpoints go
     afterwards."""
     work = str(tmp_path_factory.mktemp("loop"))
-    procs = _spawn(["-m", "tests.torch_distributed_worker", "loop", work], work)
+    procs = spawn_ranks(["-m", "tests.torch_distributed_worker", "loop", work], work, RANKS)
     try:
         yield work, procs
     finally:
@@ -163,7 +120,8 @@ def steps(tmp_path_factory, loop_ranks):
     """The ranks' `steps` run, with the BatchNorm and one-process step
     references computed here meanwhile: (rank outputs, BatchNorm refs)."""
     work = str(tmp_path_factory.mktemp("steps"))
-    procs = _spawn(["-m", "tests.torch_distributed_worker", "steps", work], work)
+    procs = spawn_ranks(["-m", "tests.torch_distributed_worker", "steps", work], work,
+                        RANKS)
     try:
         bn_refs = {dtype: _bn_references(dtype) for dtype in worker.BN_DTYPES}
         for name in worker.REF_CASES:
@@ -171,7 +129,7 @@ def steps(tmp_path_factory, loop_ranks):
             torch.save(worker.reference(name), path + ".tmp")
             os.replace(path + ".tmp", path)
     finally:
-        _wait(procs, work)
+        wait_ranks(procs, work, RUN_TIMEOUT_S)
     outs = [torch.load(os.path.join(work, f"steps_{r}.pt"), weights_only=True)
             for r in range(RANKS)]
     for name in worker.REF_CASES:
@@ -240,7 +198,7 @@ def test_mesh_is_the_world_over_data(steps):
     outs, _ = steps
     for out in outs:
         assert out["mesh_refusals"] == [
-            "the 'model' dimension is not ported: n_model must be 1",
+            "2 ranks do not split over n_model=3",
             "a 3x1 mesh needs a world of 3, not 2"]
 
 
@@ -257,7 +215,7 @@ def test_mesh_and_init_need_a_world(monkeypatch):
 
 
 def test_one_rank_mesh_takes_the_plain_step(tmp_path, monkeypatch):
-    """A data group of one rank: the mesh Trainer syncs, replicates and
+    """A world of one rank: the mesh Trainer syncs, shards, replicates and
     averages nothing, and its step is bit-equal to the plain Trainer's."""
     import torch.distributed as dist
 
@@ -276,9 +234,10 @@ def test_one_rank_mesh_takes_the_plain_step(tmp_path, monkeypatch):
         return trainer, trainer.step(batch)
 
     plain, want = stepped(None)
-    for name in ("replicated", "average_gradients", "average_scalars", "sync_batch_norm"):
+    for name in ("replicated", "average_gradients", "average_scalars", "sync_batch_norm",
+                 "shard_queries"):
         def refuse(*args, name=name, **kwargs):
-            raise AssertionError(f"{name} in a one-rank data group")
+            raise AssertionError(f"{name} in a one-rank world")
         monkeypatch.setattr(trainer_mod, name, refuse)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
                             world_size=1)
@@ -320,7 +279,7 @@ def loop_run(loop_ranks):
     """The ranks' `loop` run, finished: (its directory, each rank's output,
     each rank's dataset states)."""
     work, procs = loop_ranks
-    logs = _wait(procs, work)
+    logs = wait_ranks(procs, work, RUN_TIMEOUT_S)
     states = [torch.load(os.path.join(work, f"loop_{r}.pt"), weights_only=True)
               for r in range(RANKS)]
     return work, logs, states
@@ -393,9 +352,10 @@ def test_cli_distributed_trains_on_two_processes(tmp_path):
     with open(config, "w") as f:
         yaml.safe_dump(cfg, f)
     try:
-        logs = _wait(_spawn(["-m", "mrfa_tpu_torch.cli.run", "--distributed", "--device", "cpu",
+        procs = spawn_ranks(["-m", "mrfa_tpu_torch.cli.run", "--distributed", "--device", "cpu",
                              "--mode", "train", "--max_steps_per_epoch", "1", "--config", config,
-                             "--log_dir", str(tmp_path / "log")], str(tmp_path)), str(tmp_path))
+                             "--log_dir", str(tmp_path / "log")], str(tmp_path), RANKS)
+        logs = wait_ranks(procs, str(tmp_path), RUN_TIMEOUT_S)
         (log_dir,) = glob.glob(str(tmp_path / "log" / "tiny *"))
         assert os.path.exists(os.path.join(log_dir, "tiny.yaml"))
         assert len(open(os.path.join(log_dir, "log.txt")).read().splitlines()) == 1

@@ -8,11 +8,17 @@ that use it, so that `chip_smoke.py` (no JAX on the card) can use the rest.
 from __future__ import annotations
 
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 import yaml
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def nchw(x) -> torch.Tensor:
@@ -302,3 +308,44 @@ def write_cli_inputs(root, cfg=None, seed: int = 0):
     pth_path = os.path.join(root, "model.pth")
     reference_pth(state, pth_path)
     return config_path, pth_path, state
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(args, work, ranks: int, cwd=REPO):
+    """`ranks` processes of `python args` with torchrun's environment (one
+    torch thread each), their output in work/rank<r>.log."""
+    port = _free_port()
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+        log = open(os.path.join(work, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, *args], cwd=cwd, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_ranks(procs, work, timeout: float):
+    """Wait up to `timeout` s for each of `spawn_ranks`' processes; every
+    rank's output, failing if one failed."""
+    codes = []
+    try:
+        for proc, log in procs:
+            codes.append(proc.wait(timeout=timeout))
+            log.close()
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    logs = [open(os.path.join(work, f"rank{r}.log")).read() for r in range(len(procs))]
+    assert codes == [0] * len(procs), "\n".join(f"rank {r}: {log[-3000:]}" for r, log in
+                                                 enumerate(logs))
+    return logs
