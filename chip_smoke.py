@@ -113,10 +113,10 @@ and runs these phases; any failure exits non-zero:
      the full-width model, `demo` from the converted checkpoint on PNG
      inputs (32 driving frames; plain and `--find_best_frame`): frames/s,
      6 lookups a frame, the frames equal to `Animator.make_animation`'s;
- 16. `utils.profiling` on the card: `trace` and `annotate` around 2 bf16
-     training steps (the spans and the port's kernels, in bf16, in the
-     trace; the cuDNN FFT-convolution share beside the f32 step's of phase
-     8), `StepTimer` against CUDA events;
+ 16. `utils.profiling` on the card: `trace` around 2 bf16 training steps
+     (the program's `train.step` spans with their children, and the port's
+     kernels, in bf16, in the trace; the cuDNN FFT-convolution share beside
+     the f32 step's of phase 8);
  17. more than one device: (a) a one-rank NCCL world in this process and
      its data mesh (`parallel.mesh`), config/vox1.yaml at 256 px, batch 10,
      bf16 policy: the mesh `Trainer`'s step against a plain `Trainer`'s
@@ -2270,41 +2270,24 @@ def fft_share(by_name) -> float:
 
 
 def phase_profiling(trainer, batch, work: Path, f32_fft: float, card: str):
-    """Phase 16: `utils.profiling` on the card: `StepTimer` against CUDA
-    events over 3 bf16 training steps (one warm-up): within 5%; then `trace`
-    around 2 steps, each in an `annotate("train_step")` span (the trace must
-    hold the spans and the port's kernels, in bf16), and the FFT-convolution
-    share of the bf16 step's busy time beside the f32 step's (phase 8). The
-    timer runs first: timed after the trace, with its ~115 MB of parsed
-    events alive, the host-bound steps ran 1.8-6x slower (PERF.md)."""
-    import torch
-
+    """Phase 16: `utils.profiling` on the card: `trace` around 2 bf16
+    training steps (the trace must hold the program's `train.step` spans
+    with their `train.forward`, `train.backward` and `train.update` children
+    inside them, and the port's kernels, in bf16), and the FFT-convolution
+    share of the bf16 step's busy time beside the f32 step's (phase 8)."""
     from mrfa_tpu_torch.utils import profiling
-
-    timer = profiling.StepTimer(warmup=1, device="cuda")
-    event_ms = []
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with timer:
-            start.record()
-            trainer.step(batch)
-            end.record()
-        end.synchronize()
-        event_ms.append(start.elapsed_time(end))
-    events_mean = float(np.mean(event_ms[1:])) / 1e3
-    rel = abs(timer.mean_step_time - events_mean) / events_mean
-    print(f"phase16 StepTimer: {timer.steps_timed} steps, mean {timer.mean_step_time * 1e3:.3f} "
-          f"ms, CUDA events {events_mean * 1e3:.3f} ms, rel {rel:.4f} (tol 0.05); "
-          f"{timer.throughput(TRAIN_BATCH):.3f} samples/s; {card}")
-    check(timer.steps_timed == 2 and rel <= 0.05, f"StepTimer vs CUDA events: {rel}")
 
     logdir = work / "trace"
     with profiling.trace(str(logdir)):
         for _ in range(2):
-            with profiling.annotate("train_step"):
-                trainer.step(batch)
+            trainer.step(batch)
     events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
-    spans = [e for e in events if e.get("name") == "train_step"]
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+    spans = [e for e in host if e["name"] == "train.step"]
+    children = {name: [e for e in host if e["name"] == name]
+                for name in ("train.forward", "train.backward", "train.update")}
+    nested = all(any(s["ts"] <= c["ts"] and c["ts"] + c["dur"] <= s["ts"] + s["dur"]
+                     for s in spans) for cs in children.values() for c in cs)
     kernels = [e for e in events if e.get("cat") == "kernel"]
     by_name = {}
     for e in kernels:
@@ -2318,13 +2301,16 @@ def phase_profiling(trainer, batch, work: Path, f32_fft: float, card: str):
     busy = sum(t for t, _ in by_name.values())
     window = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
     print("phase16 trace: " + json.dumps({
-        "card": card, "train_step_spans": len(spans), "kernel_events": len(kernels),
+        "card": card, "train_step_spans": len(spans),
+        "child_spans": {k: len(v) for k, v in children.items()}, "kernel_events": len(kernels),
         "port_kernels": ported, "port_kernels_in_bf16": in_bf16,
         "busy_ms_per_step": busy / 2 / 1e3, "window_ms_per_step": window / 2 / 1e3,
         "idle_share": 1 - busy / window,
         "fft_share_bf16": share, "fft_share_f32_phase8": f32_fft,
         "trace_bytes": (logdir / "trace.json").stat().st_size}))
-    check(len(spans) >= 2, f"the trace holds {len(spans)} train_step spans")
+    check(len(spans) == 2, f"the trace holds {len(spans)} train.step spans")
+    check(all(len(v) == 2 for v in children.values()) and nested,
+          f"train.step's children: { {k: len(v) for k, v in children.items()} }, nested {nested}")
     check(all(ported.values()), f"the trace lacks a port kernel: {ported}")
     check(all(in_bf16.values()), f"a port kernel did not run in bf16: {ported}")
     return share

@@ -18,9 +18,9 @@ import numpy as np
 import torch
 
 from mrfa_tpu_torch.models.mrfa import MRFA
-from mrfa_tpu_torch.ops import launches
 from mrfa_tpu_torch.ops.resize import antialias_downsample
 from mrfa_tpu_torch.precision import cast_params_for_inference
+from mrfa_tpu_torch.utils import profiling
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import resolve_device
 
@@ -80,36 +80,42 @@ class FrameGraph:
     """One clip's frame step captured as a CUDA graph. `replay(frame)` copies
     the (B, H, W, 3) frame into the captured input, replays the step and
     returns the generated (B, H, W, 3) image (a view of the graph's output,
-    overwritten by the next replay). The kernels' launch counts grow by the
-    captured launches at every replay. The graph is captured and replayed
-    on the frame's device, whichever device is current."""
+    overwritten by the next replay). The counts the capture bumped (the
+    kernels' launches among them) grow by as much at every replay. The
+    step's stage boundaries record the graph's `stages` timing events at
+    every replay. The graph is captured and replayed on the frame's device,
+    whichever device is current."""
 
     WARMUP_STEPS = 2  # eager steps before the capture
 
     def __init__(self, step, clip_state, frame: torch.Tensor):
         self.clip_state = clip_state
         self.input = frame.clone()
-        with torch.cuda.device(self.input.device):
+        self.stages = profiling.StageEvents()
+        with profiling.span("graph.capture"), torch.cuda.device(self.input.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):  # cuDNN and cuBLAS pick their kernels here
                 for _ in range(self.WARMUP_STEPS):
-                    step(clip_state, self.input)
+                    with self.stages.timing():
+                        step(clip_state, self.input)
             torch.cuda.current_stream().wait_stream(side)
-            before = launches.counts()
             self.graph = torch.cuda.CUDAGraph()
             # not torch.cuda.graph's default capture stream: one for the whole
             # process, made on the device that was current at its first capture
-            with torch.cuda.graph(self.graph, stream=side):
-                self.output = step(clip_state, self.input)[0]
-        self.launches = {k: n - before[k] for k, n in launches.counts().items()}
-        launches.add(self.launches, -1)  # capturing launched nothing
+            with profiling.CapturedCounts() as self.counts:
+                with torch.cuda.graph(self.graph, stream=side), self.stages.timing():
+                    self.output = step(clip_state, self.input)[0]
+        self.capture = profiling.count("graph.captures")  # this capture's id
+        self.launches = {k[len(profiling.LAUNCH):]: n for k, n in self.counts.delta.items()
+                         if k.startswith(profiling.LAUNCH)}
 
     def replay(self, frame: torch.Tensor) -> torch.Tensor:
         with torch.cuda.device(self.input.device):
             self.input.copy_(frame)
             self.graph.replay()
-        launches.add(self.launches)
+        self.counts.replay()
+        profiling.count("graph.replays")
         return self.output
 
 
@@ -156,13 +162,14 @@ class Animator:
     @torch.inference_mode()
     def begin(self, source_image, first_driving_frame, adapt_movement_scale: bool = False):
         """Per-clip setup: source and initial driving keypoints, scale, cache."""
-        source = self._image(source_image)
-        kp_source = self.model.encode_kp(source)
-        kp_d0 = self.model.encode_kp(self._image(first_driving_frame))
-        scale = movement_scale(kp_source, kp_d0) if adapt_movement_scale else 1.0
-        img_down = antialias_downsample(source, 0.25)
-        cache = self.model.encode_source_cache(source, kp_source, img_down)
-        return source, img_down, kp_source, kp_d0, scale, cache
+        with profiling.span("animator.begin"):
+            source = self._image(source_image)
+            kp_source = self.model.encode_kp(source)
+            kp_d0 = self.model.encode_kp(self._image(first_driving_frame))
+            scale = movement_scale(kp_source, kp_d0) if adapt_movement_scale else 1.0
+            img_down = antialias_downsample(source, 0.25)
+            cache = self.model.encode_source_cache(source, kp_source, img_down)
+            return source, img_down, kp_source, kp_d0, scale, cache
 
     @torch.inference_mode()
     def animate_frame(self, clip_state, driving_frame):
@@ -172,14 +179,17 @@ class Animator:
     def _frame_step(self, clip_state, driving_frame):
         source, img_down, kp_source, kp_d0, scale, cache = clip_state
         model = self.model
-        kp_driving = model.encode_kp(self._image(driving_frame))
-        kp_norm = normalize_kp(
-            kp_source, kp_driving, kp_d0,
-            adapt_movement_scale=scale,
-            use_relative_movement=self.relative,
-            use_relative_jacobian=self.relative and self.use_relative_jacobian,
-        )
-        dense_motion = model.run_dense_motion(source, kp_norm, kp_source)
+        with profiling.stage("frame.keypoints"):
+            kp_driving = model.encode_kp(self._image(driving_frame))
+            kp_norm = normalize_kp(
+                kp_source, kp_driving, kp_d0,
+                adapt_movement_scale=scale,
+                use_relative_movement=self.relative,
+                use_relative_jacobian=self.relative and self.use_relative_jacobian,
+            )
+        with profiling.stage("frame.dense_motion"):
+            dense_motion = model.run_dense_motion(source, kp_norm, kp_source)
+        # the decoder opens the stages frame.levels, frame.refine and frame.decode
         out, warp_img, occlusion = model.decoder(
             model.kp_for_decoder(kp_source), model.kp_for_decoder(kp_norm),
             dense_motion, img_down, source, source_cache=cache,
@@ -189,18 +199,26 @@ class Animator:
     @torch.inference_mode()
     def animate_chunk(self, clip_state, driving_frames) -> torch.Tensor:
         """K frames in one call: (K, H, W, 3) or (K, B, H, W, 3) -> the
-        generated (K, B, H, W, 3), each frame as `animate_frame` makes it."""
-        frames = self._frames(driving_frames)
-        if self.device.type != "cuda":
-            return torch.stack([self._frame_step(clip_state, f)[0] for f in frames])
-        graph = self._graph
-        if graph is None or graph.clip_state is not clip_state or graph.input.shape != frames.shape[1:]:
-            self._graph = None  # free the last clip's graph first
-            graph = self._graph = FrameGraph(self._frame_step, clip_state, frames[0])
-        out = torch.empty_like(frames)
-        for k, f in enumerate(frames):
-            out[k] = graph.replay(f)
-        return out
+        generated (K, B, H, W, 3), each frame as `animate_frame` makes it.
+        On CUDA the call's device time, the device's idle time before it and,
+        on a sampled call, its last replay's stage times go to the telemetry
+        registry (`utils.profiling`), read there later without waiting."""
+        with profiling.span("animator.chunk"):
+            frames = self._frames(driving_frames)
+            if self.device.type != "cuda":
+                return torch.stack([self._frame_step(clip_state, f)[0] for f in frames])
+            graph = self._graph
+            captured = (graph is None or graph.clip_state is not clip_state
+                        or graph.input.shape != frames.shape[1:])
+            if captured:
+                self._graph = None  # free the last clip's graph first
+                graph = self._graph = FrameGraph(self._frame_step, clip_state, frames[0])
+            out = torch.empty_like(frames)
+            with torch.cuda.device(graph.input.device), profiling.REGISTRY.call(
+                    graph.input.device, graph.capture, captured, graph.stages):
+                for k, f in enumerate(frames):
+                    out[k] = graph.replay(f)
+            return out
 
     def _frames(self, frames) -> torch.Tensor:
         """(K, H, W, 3) or (K, B, H, W, 3) -> (K, B, H, W, 3) on the device."""

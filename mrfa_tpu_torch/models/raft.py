@@ -57,6 +57,7 @@ from mrfa_tpu_torch.ops.grid import coords_grid, kp2gaussian
 from mrfa_tpu_torch.ops.resize import avg_pool, resize_bilinear
 from mrfa_tpu_torch.ops.sampler import grid_sample, sample_pixel
 from mrfa_tpu_torch.parallel.mesh import MODEL_AXIS, gather_rows, group_copy, model_shard
+from mrfa_tpu_torch.utils import profiling
 
 
 def _id_grid(res: int, like: torch.Tensor) -> torch.Tensor:
@@ -125,6 +126,7 @@ class RaftFlow(nn.Module):
         self.h = self.w = size // 4
         self.total_iter = int(math.log2(32)) + 1  # 6 fixed refinement steps
         self.basic_res_index = int(math.log2(self.h // (size // 32)))
+        self.refine_spans = tuple(f"refine.{i}" for i in range(self.total_iter))
         gen_cfg = dict(generator or {})
         self.generator = OcclusionAwareGenerator(**gen_cfg, coarse_branch=not prior_only)
         if prior_only:
@@ -299,59 +301,68 @@ class RaftFlow(nn.Module):
         if source_cache is None:
             source_cache = self.encode_source(kp_s, img, img_full)
         feature = source_cache["feature"]
-        img_cast = img_full if self.compute_dtype is None else img_full.to(self.compute_dtype)
         if self.prior_only:
-            return self._prior_only_forward(dense_motion, feature, img_cast)
+            with profiling.stage("frame.decode"):
+                return self._prior_only_forward(dense_motion, feature, self._cast(img_full))
         f_s, f_s_p = source_cache["f_s"], source_cache["f_s_p"]
         h, w = img.shape[-2:]
 
-        g_d = kp2gaussian(kp_d, (h, w), 0.1) + self.pos_embedding
-        q_d = self.kp_head(self.kp(g_d))  # (B, dim, h, w) driving query features
-        if self.query_group is not None:  # each rank's lookups use a part of each
-            q_d, f_s, f_s_p = (group_copy(t, self.query_group) for t in (q_d, f_s, f_s_p))
+        with profiling.stage("frame.levels"):
+            g_d = kp2gaussian(kp_d, (h, w), 0.1) + self.pos_embedding
+            q_d = self.kp_head(self.kp(g_d))  # (B, dim, h, w) driving query features
+            if self.query_group is not None:  # each rank's lookups use a part of each
+                q_d, f_s, f_s_p = (group_copy(t, self.query_group) for t in (q_d, f_s, f_s_p))
 
-        # correlation levels per driving resolution; the full-resolution
-        # levels are built once and shared by the last iterations
-        bri = self.basic_res_index
-        full_levels = self._build_levels(q_d, f_s, f_s_p)
-        levels: List[Any] = [
-            self._build_levels(avg_pool(q_d, 2 ** (bri - i)), f_s, f_s_p)
-            if i < bri else full_levels
-            for i in range(self.total_iter)
-        ]
+            # correlation levels per driving resolution; the full-resolution
+            # levels are built once and shared by the last iterations
+            bri = self.basic_res_index
+            full_levels = self._build_levels(q_d, f_s, f_s_p)
+            levels: List[Any] = [
+                self._build_levels(avg_pool(q_d, 2 ** (bri - i)), f_s, f_s_p)
+                if i < bri else full_levels
+                for i in range(self.total_iter)
+            ]
 
-        # prior motion initialization (normalized -> pixel flow)
-        deformation = dense_motion["deformation"]  # (B, h, w, 2)
-        init_flow = (h - 1) * (deformation.permute(0, 3, 1, 2) + 1.0) / 2.0 - _id_grid(
-            h, deformation
-        )
-        init_occlusion = dense_motion["occlusion"]
-        flow = resize_bilinear(init_flow, self.size // 32, align_corners=True) / 8.0
-        occlusion = resize_bilinear(init_occlusion, self.size // 32, align_corners=True)
-
-        out_flow_w, out_occ_logits = [], []
-        d_f_pre = d_occ_pre = None
-        for i in range(self.total_iter):
-            map0, map1 = levels[i]
-            flow, occlusion, d_f_pre, d_occ_pre, flow_w, occ_logits = self._refine_iter(
-                i, flow, occlusion, d_f_pre, d_occ_pre, map0, map1, feature[i],
-                init_flow, init_occlusion,
+        with profiling.stage("frame.refine"):
+            # prior motion initialization (normalized -> pixel flow)
+            deformation = dense_motion["deformation"]  # (B, h, w, 2)
+            init_flow = (h - 1) * (deformation.permute(0, 3, 1, 2) + 1.0) / 2.0 - _id_grid(
+                h, deformation
             )
-            out_flow_w.append(flow_w)
-            out_occ_logits.append(occ_logits)
+            init_occlusion = dense_motion["occlusion"]
+            flow = resize_bilinear(init_flow, self.size // 32, align_corners=True) / 8.0
+            occlusion = resize_bilinear(init_occlusion, self.size // 32, align_corners=True)
 
-        # as the reference: the final image warp uses the last iteration's
-        # pre-refinement flow
-        warp_img = sample_pixel(img_cast, _to_grid(flow + _id_grid(self.size, flow)))
-        out_occlusion = [torch.sigmoid(o) for o in out_occ_logits]
-        out = self._warp_decode(
-            feature[: self.total_iter], out_flow_w, out_occlusion, deformation, warp_img
-        )
-        vis = [
-            resize_bilinear(o, self.size, align_corners=True)
-            for o in out_occlusion + [torch.sigmoid(init_occlusion)]
-        ]
-        return out, warp_img, torch.cat(vis, dim=3)
+            out_flow_w, out_occ_logits = [], []
+            d_f_pre = d_occ_pre = None
+            for i in range(self.total_iter):
+                map0, map1 = levels[i]
+                with profiling.span(self.refine_spans[i]):
+                    flow, occlusion, d_f_pre, d_occ_pre, flow_w, occ_logits = self._refine_iter(
+                        i, flow, occlusion, d_f_pre, d_occ_pre, map0, map1, feature[i],
+                        init_flow, init_occlusion,
+                    )
+                out_flow_w.append(flow_w)
+                out_occ_logits.append(occ_logits)
+
+        with profiling.stage("frame.decode"):
+            # as the reference: the final image warp uses the last iteration's
+            # pre-refinement flow
+            warp_img = sample_pixel(self._cast(img_full),
+                                    _to_grid(flow + _id_grid(self.size, flow)))
+            out_occlusion = [torch.sigmoid(o) for o in out_occ_logits]
+            out = self._warp_decode(
+                feature[: self.total_iter], out_flow_w, out_occlusion, deformation, warp_img
+            )
+            vis = [
+                resize_bilinear(o, self.size, align_corners=True)
+                for o in out_occlusion + [torch.sigmoid(init_occlusion)]
+            ]
+            return out, warp_img, torch.cat(vis, dim=3)
+
+    def _cast(self, img: torch.Tensor) -> torch.Tensor:
+        """The image in the policy's compute dtype, for the final warp."""
+        return img if self.compute_dtype is None else img.to(self.compute_dtype)
 
 
 def shard_queries(model: nn.Module, mesh) -> nn.Module:

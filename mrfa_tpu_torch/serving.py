@@ -26,6 +26,7 @@ import torch
 
 from mrfa_tpu_torch.animate import Animator, stream_scales
 from mrfa_tpu_torch.models.mrfa import MRFA
+from mrfa_tpu_torch.utils import profiling
 
 __all__ = ["AnimationServer", "StreamBatchState", "stream_scales"]
 
@@ -77,12 +78,14 @@ class AnimationServer(Animator):
         """The state of S streams from their (S, H, W, 3) sources and first
         driving frames; with `adapt_movement_scale` each stream's motion is
         scaled by its own convex-hull ratio (`stream_scales`)."""
-        if len(self.replicas) == 1:
-            return _stream_state(self, self.begin(sources, first_frames), adapt_movement_scale)
-        begun = [r.begin(s, f) for r, s, f in
-                 zip(self.replicas, self._split(sources), self._split(first_frames))]
-        return tuple(_stream_state(r, b, adapt_movement_scale)
-                     for r, b in zip(self.replicas, begun))
+        with profiling.span("server.open_streams"):
+            if len(self.replicas) == 1:
+                return _stream_state(self, self.begin(sources, first_frames),
+                                     adapt_movement_scale)
+            begun = [r.begin(s, f) for r, s, f in
+                     zip(self.replicas, self._split(sources), self._split(first_frames))]
+            return tuple(_stream_state(r, b, adapt_movement_scale)
+                         for r, b in zip(self.replicas, begun))
 
     def serve(self, state, frames) -> torch.Tensor:
         """Advance every stream one frame: (S, H, W, 3) -> (S, H, W, 3)."""

@@ -54,6 +54,7 @@ from mrfa_tpu_torch.parallel.mesh import (
     shard_rows,
 )
 from mrfa_tpu_torch.train.optim import BG_SUBTREES, clip_inf_norm_subtrees, make_optimizer
+from mrfa_tpu_torch.utils import profiling
 from mrfa_tpu_torch.utils.convert import load_jax_variables
 from mrfa_tpu_torch.utils.device import frames_to_device, resolve_device
 
@@ -149,43 +150,48 @@ class Trainer:
         "kp_s", "kp_d"), all on the device and detached."""
         if use_bg and self.optimizer_bg is None:
             raise ValueError("use_bg needs a model with a bg_predictor (bg_start < num_epochs)")
-        source = self._frames(batch["source"])
-        driving = self._frames(batch["driving"])
-        tp = self.cfg["train_params"]
-        index, count = self.batch_shard
+        with profiling.span("train.step"):
+            source = self._frames(batch["source"])
+            driving = self._frames(batch["driving"])
+            tp = self.cfg["train_params"]
+            index, count = self.batch_shard
 
-        def rows(x):  # this rank's rows of a draw for the global batch
-            return x if count == 1 or x is None else shard_rows(x, index, count)
+            def rows(x):  # this rank's rows of a draw for the global batch
+                return x if count == 1 or x is None else shard_rows(x, index, count)
 
-        transform = keep = None
-        if tp["loss_weights"].get("equivariance", 0) != 0:
-            transform = random_transform_params(
-                self.generator, source.shape[0] * count, **tp["transform_params"],
-                device=self.device
-            )
-            transform = transform._replace(theta=rows(transform.theta),
-                                           control_params=rows(transform.control_params))
-        if dropout_flag:
-            keep = rows(dropout_keep(source.shape[0] * count, self.model.dense_motion.motions,
-                                     dropout_p, self.dropout_generator, self.device))
-        gen, warp_vis, losses, kp_s, kp_d = self.model(
-            source, driving, compute_loss=True, transform=transform, use_bg=use_bg,
-            dropout_flag=dropout_flag, dropout_p=dropout_p, dropout_keep=keep,
-        )
-        total = sum(losses.values())
-        self.model.zero_grad(set_to_none=True)
-        total.backward()
-        if self.group is not None:
-            average_gradients(self.model.parameters(), self.group)
-        self.apply_gradients(use_bg)
-        self.steps += 1
-        terms = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
-        if self.group is not None:
-            terms = average_scalars(terms, self.group)
-        extras = {"gen": gen.detach().permute(0, 2, 3, 1),
-                  "warp_vis": warp_vis.detach().permute(0, 2, 3, 1),
-                  "kp_s": kp_s.detach(), "kp_d": kp_d.detach()}
-        return terms, extras
+            with profiling.span("train.forward"):
+                transform = keep = None
+                if tp["loss_weights"].get("equivariance", 0) != 0:
+                    transform = random_transform_params(
+                        self.generator, source.shape[0] * count, **tp["transform_params"],
+                        device=self.device
+                    )
+                    transform = transform._replace(theta=rows(transform.theta),
+                                                   control_params=rows(transform.control_params))
+                if dropout_flag:
+                    keep = rows(dropout_keep(source.shape[0] * count,
+                                             self.model.dense_motion.motions, dropout_p,
+                                             self.dropout_generator, self.device))
+                gen, warp_vis, losses, kp_s, kp_d = self.model(
+                    source, driving, compute_loss=True, transform=transform, use_bg=use_bg,
+                    dropout_flag=dropout_flag, dropout_p=dropout_p, dropout_keep=keep,
+                )
+                total = sum(losses.values())
+            with profiling.span("train.backward"):
+                self.model.zero_grad(set_to_none=True)
+                total.backward()
+            terms = {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+            if self.group is not None:
+                with profiling.span("train.allreduce"):
+                    average_gradients(self.model.parameters(), self.group)
+                    terms = average_scalars(terms, self.group)
+            with profiling.span("train.update"):
+                self.apply_gradients(use_bg)
+            self.steps += 1
+            extras = {"gen": gen.detach().permute(0, 2, 3, 1),
+                      "warp_vis": warp_vis.detach().permute(0, 2, 3, 1),
+                      "kp_s": kp_s.detach(), "kp_d": kp_d.detach()}
+            return terms, extras
 
     def apply_gradients(self, use_bg: bool) -> None:
         """Clip, then one update of the main group and, when `use_bg`, of the

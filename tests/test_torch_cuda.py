@@ -396,3 +396,95 @@ def test_loop_epoch_of_two_steps_on_the_card(cuda, tmp_path, name):
         for k in want[i]:
             assert torch.equal(got[i][k].cpu(), want[i][k].cpu()), (i, k)
     assert torch.equal(fresh.generator.get_state(), trainer.generator.get_state())
+
+
+def _animator_and_frames(cuda, k=3):
+    from mrfa_tpu_torch.animate import Animator
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    torch.manual_seed(0)
+    model = MRFA(_small_cfg())
+    animator = Animator(model, model.state_dict())
+    rng = np.random.RandomState(0)
+    source = rng.rand(64, 64, 3).astype(np.float32)
+    frames = torch.from_numpy(rng.rand(k, 64, 64, 3).astype(np.float32)).to(cuda)
+    return animator, animator.begin(source, frames[0].cpu().numpy()), frames
+
+
+def test_captured_stage_events_time_the_replay(cuda):
+    """The stage events captured into the frame step's graph: five positive
+    stage times whose sum is within 3% of CUDA events around the same
+    replay."""
+    from mrfa_tpu_torch.utils import profiling
+
+    animator, state, frames = _animator_and_frames(cuda)
+    animator.animate_chunk(state, frames)  # captures the graph
+    graph = animator._graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ratios = []
+    for k in range(5):
+        start.record()
+        with torch.inference_mode():  # the graph's input is an inference tensor
+            graph.replay(frames[k % 3][None])
+        end.record()
+        end.synchronize()
+        stages = graph.stages.times_ms()
+        assert list(stages) == ["frame.keypoints", "frame.dense_motion", "frame.levels",
+                                "frame.refine", "frame.decode"]
+        assert all(t > 0 for t in stages.values()), stages
+        ratios.append(sum(stages.values()) / start.elapsed_time(end))
+    assert 0.97 <= float(np.median(ratios)) <= 1.0 + 1e-6, ratios
+    calls = profiling.snapshot()["calls"]
+    assert calls[-1]["stages_ms"] is not None and calls[-1]["captured"]
+
+
+def test_graph_counters_equal_the_calls(cuda):
+    from mrfa_tpu_torch.utils import profiling
+
+    animator, state, frames = _animator_and_frames(cuda)
+    before = profiling.snapshot()
+    for _ in range(2):
+        animator.animate_chunk(state, frames)  # one capture, 6 replays
+    state2 = animator.begin(frames[1].cpu().numpy(), frames[2].cpu().numpy())
+    animator.animate_chunk(state2, frames[:2])  # a second capture, 2 replays
+    torch.cuda.synchronize()
+    after = profiling.snapshot()
+
+    def grew(name):
+        return after["counters"][name] - before["counters"].get(name, 0)
+
+    assert grew("graph.captures") == 2 and grew("graph.replays") == 8
+    assert grew("launch.corr_lookup") == 6 * (2 * animator._graph.WARMUP_STEPS + 8)
+    calls = after["calls"][len(before["calls"]):]
+    assert [c["captured"] for c in calls] == [True, False, True]
+    assert calls[0]["gap_ms"] is None and calls[1]["gap_ms"] >= 0
+    assert all(c["device_ms"] > 0 for c in calls)
+    # a graph's first call is sampled (its stage times lost unless it was
+    # done before the second replayed the graph), its second is not
+    assert calls[1]["stages_ms"] is None and calls[2]["stages_ms"]
+
+
+def test_reading_the_registry_never_synchronizes(cuda):
+    """No synchronizing runtime call inside a profiler trace of
+    `animate_chunk` calls and `snapshot()`: the registry reads events only
+    once they report done."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mrfa_tpu_torch.utils import profiling
+
+    animator, state, frames = _animator_and_frames(cuda)
+    animator.animate_chunk(state, frames)  # captures the graph
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("probe.calls"):
+            for _ in range(3):
+                animator.animate_chunk(state, frames)
+            profiling.snapshot()
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    (probe,) = [e for e in events if e.name() == "probe.calls" and "CPU" in str(e.device_type())]
+    t0, t1 = probe.start_ns(), probe.start_ns() + probe.duration_ns()
+    inside = {e.name() for e in events if t0 <= e.start_ns() <= t1}
+    assert "cudaGraphLaunch" in inside
+    assert not inside & {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+                         "cudaEventSynchronize"}, sorted(inside)
