@@ -21,7 +21,8 @@ and runs these phases; any failure exits non-zero:
      probes' BQ 4096 and 16384 and on 48x48 maps (each level ending in a
      partial stage), bit-exact, its machine code (bulk copies, no per-thread
      cp.async) and its rate after an L2 flush (above the memory rate fails:
-     bytes were skipped);
+     bytes were skipped); the bilinear warp forward at the 19 warps of an
+     8-stream frame step (pixel coordinates and normalized grids);
   2. the frame step on the card against the port's CPU path, at a small
      config, with TF32 off, with and without `prior_only`; and under the
      bf16 policy (every module's output dtype equal on both, the frames
@@ -38,14 +39,16 @@ and runs these phases; any failure exits non-zero:
      equal to the frame-by-frame frames),
      `make_animation_from_best_frame`, and the `prior_only` model; each path
      with the kernels' launch counts read from its own run alone (6 lookups
-     a frame, none under `prior_only`, no backward kernel);
+     and 19 warps a frame, no lookup and 8 warps under `prior_only`, no
+     backward kernel);
   4. one training step on the card against the port's CPU path, at a small
      config, from the same weights and the same equivariance transform;
   5. the training path at full width: the same model, batch 10, smooth
      synthetic frames from a seed, warm-up and timed `Trainer.step`s (ms per
      step, samples/s, peak memory), with the launch counts of this run alone
-     checked against the expected 6 lookups, 6 lookup backwards and 17
-     splats a step (and 22 launches of the splat's two binning kernels);
+     checked against the expected 6 lookups, 6 lookup backwards, 17 splats
+     and 20 warps a step (and 22 launches of the splat's two binning
+     kernels);
   6. a learning check: 20 steps on one fixed batch at the small config;
   7. each kernel timed with CUDA events at its main path's largest shape,
      beside its plain version, a library yardstick and its bound (the larger
@@ -53,14 +56,17 @@ and runs these phases; any failure exits non-zero:
      lookup also at the serving BQ 4096 and the reconstruction BQ 32768,
      the streaming probe at BQ 4096 and 16384 beside a same-bytes library
      read (`l0.sum(); l1.sum()`) and, at 16384, back to back without the
-     flush;
+     flush; the bilinear warp at the 19 warps of a frame step of 8 and of
+     1 streams (f32, bf16) beside its plain version and `F.grid_sample`,
+     with the sums a frame step (the table's rows: 64 channels at 256 px
+     and 512 at 8 px, 8 streams);
      the splat at all six shapes and the lookup at all twelve query counts,
      with the sums of launches x ms against launches x bound, training per
      step, serving per frame and reconstruction per chunk
      (`mrfa_tpu_torch/tools/kernel_times.py`);
   8. a torch.profiler breakdown of a few frames (f32 and bf16), of one
-     `animate_chunk` call of each (its traced lookup kernels equal to the
-     graph's counted launches) and of one training step;
+     `animate_chunk` call of each (its traced lookup and warp kernels equal
+     to the graph's counted launches) and of one training step;
   9. the probes of the pooled lookup (`mrfa_tpu_torch.tools.probe_lookup`
      and `probe_stream`, at their default sizes), with the launch counts of
      the pooled backward and the streaming kernels read from them alone;
@@ -92,12 +98,12 @@ and runs these phases; any failure exits non-zero:
      dropout and its detector's keypoints spread), then each on config/vox1.yaml with `prior_model` overridden
      at full width: `Animator` serving as in phase 3, and `Trainer` steps at
      batch 10 (TPSM with epoch 0's dropout): ms/step, peak memory and the
-     6 / 6 / 17 / 22 launches a step;
+     6 / 6 / 17 / 22 / 20 launches a step;
  13. training under the bf16 policy (`Trainer(compute_dtype=torch.bfloat16)`,
      f32 master weights): one step on the card against the CPU's bf16 step
      at phase 4's setup, within twice the CPU's own bf16-to-f32 distance
      measured in this run; config/vox1.yaml's model at full width, batch 10,
-     phase 5's steps (ms/step, samples/s, peak memory, 6 / 6 / 17 / 22
+     phase 5's steps (ms/step, samples/s, peak memory, 6 / 6 / 17 / 22 / 20
      launches a step, every parameter moved, gradients and Adam moments
      f32); phase 6's learning check in f32 and bf16 from the same weights,
      both falling, the bf16 loss near the f32 one;
@@ -142,7 +148,7 @@ and runs these phases; any failure exits non-zero:
      (b) config/vox1.yaml at 256 px, the sharded f32 forward at B=1 against
      the one-process forward (1e-4), then bf16 `Trainer` steps at batch 10
      (ms/step, each rank's peak memory beside a one-process step's, 6 / 6 /
-     17 / 22 launches a step on each rank, the weights and buffers
+     17 / 22 / 20 launches a step on each rank, the weights and buffers
      bit-equal after them); the lookup's and its backward's query counts,
      read at the wrappers, half of the one-process ones.
 
@@ -181,7 +187,15 @@ LEARN_STEPS = 20
 # warps of the 5 levels the decode reads (kernel_times.SPLAT_SHAPES); the 11
 # splats onto images of more than ops.splat.DIRECT_PIXELS pixels (32 px and
 # up) bin their samples with two kernels first
-PER_STEP = {"corr_lookup": 6, "corr_lookup_bwd": 6, "splat": 17, "splat_bins": 22}
+# warps: the frame step's 19 bilinear warp forwards (B7) and the equivariance
+# transform's
+PER_STEP = {"corr_lookup": 6, "corr_lookup_bwd": 6, "splat": 17, "splat_bins": 22,
+            "warp_bilinear": 20}
+# a served frame step's warps: 6 in the refinement, 6 feature and 5 coarse
+# warps and the image warp in the decode, dense motion's source warp; the
+# prior_only model's: 6 feature warps, the image warp, dense motion's
+WARPS_PER_FRAME = 19
+PRIOR_ONLY_WARPS = 8
 PROBE_BQS = (256, 1024, 4096, 16384)  # the lookup probe's default query counts
 STREAM_BQ = 4096  # the stream probe's
 STREAM_QB = 16  # queries per block of the TPU probe's streaming
@@ -272,10 +286,12 @@ def phase_kernels(k, device):
         corr_lookup_pooled_bwd_plain,
     )
     from mrfa_tpu_torch.ops.cuda_build import find_nvcc
+    from mrfa_tpu_torch.ops.sampler import _unnormalize, warp_pixels_plain
     from mrfa_tpu_torch.ops.splat import splat_bins_plain, splat_plain
     from mrfa_tpu_torch.ops.stream_probe import launch_plan, stream_probe_plain
     from mrfa_tpu_torch.tools.kernel_times import (
         FLOWS,
+        FRAME_WARPS,
         HBM_BYTES_PER_S,
         SPLAT_SHAPES,
         TRAIN_BATCH,
@@ -285,6 +301,7 @@ def phase_kernels(k, device):
         splat_inputs,
         stream_bytes,
         stream_levels,
+        warp_inputs,
     )
 
     errs = {}
@@ -357,6 +374,27 @@ def phase_kernels(k, device):
                 check(same_bins, f"splat bins {flow} res={res} differ from splat_bins_plain")
                 worst["splat"] = max(worst["splat"], err)
                 del args, got, want
+        # the bilinear warp at a frame step's 19 warps for S=8 streams (the
+        # grids normalized as the coarse branch's and dense motion's)
+        worst["warp_bilinear"] = 0.0
+        for j, (c, res, motions, kind, _) in enumerate(FRAME_WARPS):
+            img, pix = warp_inputs(8, c, res, motions, dtype, device, seed=SEED + 400 + j)
+            ix, iy = pix[..., 0], pix[..., 1]
+            if kind == "grid":  # align_corners=False, as the model's grids
+                norm = (2.0 * pix + 1.0) / res - 1.0
+                got = k["warp_bilinear"](img, norm[..., 0], norm[..., 1], True, False)
+                ix, iy = (_unnormalize(norm[..., i], res, False) for i in (0, 1))
+            else:
+                got = k["warp_bilinear"](img, ix, iy)
+            want = warp_pixels_plain(img, ix, iy)
+            torch.cuda.synchronize()
+            err, tol = close(got, want, dtype, f"warp_bilinear {name} {c}x{res} {kind}")
+            exact = int((got.float() != want.float()).sum())
+            print(f"phase1 warp_bilinear {name} B=8 C={c} {res}x{res} N={pix.shape[1]} {kind}: "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e}) values not bit-equal: {exact} of "
+                  f"{got.numel()}")
+            worst["warp_bilinear"] = max(worst["warp_bilinear"], err)
+            del img, pix, ix, iy, got, want
         worst["corr_lookup_pooled_bwd"] = 0.0
         for i, bq in enumerate(PROBE_BQS):
             corr, _, coords = lookup_inputs(bq, dtype, device, seed=SEED + 200 + i)
@@ -601,6 +639,9 @@ def reset(kernels):
     kernels["splat"].bin_launches = 0
 
 
+FORWARD_KERNELS = ("corr_lookup", "warp_bilinear")  # the frame step's
+
+
 def launch_counts(kernels) -> dict:
     """Launches by kernel; "splat_bins" counts the splat's binning kernels."""
     return {**{name: k.launches for name, k in kernels.items()},
@@ -640,7 +681,8 @@ def full_width_animator(compute_dtype=None, prior_only=False, weights=None):
     return animator, time.perf_counter() - t0
 
 
-def _serve(animator, clip, kernels, label: str, lookups_per_frame: int):
+def _serve(animator, clip, kernels, label: str, lookups_per_frame: int,
+           warps_per_frame: int = WARPS_PER_FRAME):
     """Drive one serving path: `Animator.begin`, warm-up frames and
     back-to-back frames already on the card (frames/s), then one request at
     a time from host frame to host image (latency), with the launch counts
@@ -678,8 +720,11 @@ def _serve(animator, clip, kernels, label: str, lookups_per_frame: int):
     check(launches["corr_lookup"] == lookups_per_frame * n_frames,
           f"{label}: corr_lookup launches {launches['corr_lookup']} != "
           f"{lookups_per_frame} x {n_frames} frames")
-    check(all(v == 0 for name, v in launches.items() if name != "corr_lookup"),
-          f"{label} launched another kernel than the lookup: {launches}")
+    check(launches["warp_bilinear"] == warps_per_frame * n_frames,
+          f"{label}: warp_bilinear launches {launches['warp_bilinear']} != "
+          f"{warps_per_frame} x {n_frames} frames")
+    check(all(v == 0 for name, v in launches.items() if name not in FORWARD_KERNELS),
+          f"{label} launched another kernel than the lookup and the warp: {launches}")
     outs = [o.cpu().numpy() for o in outs] + host_outs
     check(outs[-1].shape == (1, FRAME_SIZE, FRAME_SIZE, 3) and outs[-1].dtype == np.float32,
           f"{label}: output shape {outs[-1].shape} {outs[-1].dtype}")
@@ -760,7 +805,10 @@ def bf16_sampling_coords():
 
     plain = sampler.warp_pixels
 
-    def rounded(img, ix, iy, zero_oob=True):
+    def rounded(img, ix, iy, zero_oob=True, align_corners=None):
+        if align_corners is not None:  # the control rounds pixel coordinates
+            ix = sampler._unnormalize(ix, img.shape[-1], align_corners)
+            iy = sampler._unnormalize(iy, img.shape[-2], align_corners)
         return plain(img, ix.bfloat16().float(), iy.bfloat16().float(), zero_oob)
 
     sampler.warp_pixels = rounded
@@ -838,6 +886,7 @@ def phase_chunk(kernels, animator, state, clip, frame_outs, label: str):
     print("phase3c " + json.dumps(result))
     check_later(err == 0.0, f"{label}: chunked frames differ from the frame-by-frame ones by {err}")
     check(launches["corr_lookup"] == 6 * n_frames, f"{label} lookups {launches}")
+    check(launches["warp_bilinear"] == WARPS_PER_FRAME * n_frames, f"{label} warps {launches}")
     return launches
 
 
@@ -863,6 +912,7 @@ def phase_best_frame(kernels, animator, clip):
               "launches": launches, "frame_steps": steps}
     print("phase3d " + json.dumps(result))
     check(launches["corr_lookup"] == 6 * steps, f"best-frame lookups {launches}")
+    check(launches["warp_bilinear"] == WARPS_PER_FRAME * steps, f"best-frame warps {launches}")
     return launches
 
 
@@ -870,7 +920,7 @@ def phase_prior_only(kernels, card, clip):
     """Phase 3e: the `prior_only` model at full width: no refinement, so
     no lookup."""
     animator, build_s = full_width_animator(prior_only=True)
-    numbers, _, _ = _serve(animator, clip, kernels, "prior_only", 0)
+    numbers, _, _ = _serve(animator, clip, kernels, "prior_only", 0, PRIOR_ONLY_WARPS)
     result = {"phase": "prior_only", "config": "config/vox1.yaml mtia, prior_only",
               "size": FRAME_SIZE, "batch": 1, "dtype": "float32", "tf32": False, "card": card,
               "model_build_s": build_s, **numbers}
@@ -1403,8 +1453,10 @@ def phase_reconstruction(kernels, card, work: Path):
     launches = launch_counts(kernels)
     chunks = EVAL_CLIPS * -(-EVAL_FRAMES // EVAL_FRAME_BATCH)
     check(launches["corr_lookup"] == 6 * chunks, f"reconstruction lookups {launches}")
-    check(all(v == 0 for k, v in launches.items() if k != "corr_lookup"),
-          f"reconstruction launched another kernel than the lookup: {launches}")
+    check(launches["warp_bilinear"] == WARPS_PER_FRAME * chunks,
+          f"reconstruction warps {launches}")
+    check(all(v == 0 for k, v in launches.items() if k not in FORWARD_KERNELS),
+          f"reconstruction launched another kernel than the lookup and the warp: {launches}")
     check(results["frames"] == EVAL_CLIPS * EVAL_FRAMES, f"frames {results['frames']}")
     check(all(np.isfinite(results[k]) for k in ("l1", "lpips", "psnr")), f"metrics {results}")
     out_dir = work / "recon" / "reconstruction"
@@ -1449,6 +1501,8 @@ def phase_animate(kernels, card, model, work: Path):
     seconds = time.perf_counter() - t0
     launches = launch_counts(kernels)
     check(launches["corr_lookup"] == 6 * ANIMATE_FRAMES, f"animate lookups {launches}")
+    check(launches["warp_bilinear"] == WARPS_PER_FRAME * ANIMATE_FRAMES,
+          f"animate warps {launches}")
     pair = PairedDataset(dataset, number_of_pairs=1)[0]
     want = Animator(model, model.state_dict()).make_animation(pair["source_video"][0],
                                                               pair["driving_video"])
@@ -1593,8 +1647,11 @@ def phase_server(kernels, card, weights, compute_dtype=None):
         launches = launch_counts(kernels)
         check(launches["corr_lookup"] == 6 * steps,
               f"{label}: corr_lookup launches {launches['corr_lookup']} != 6 x {steps} steps")
-        check(all(v == 0 for k, v in launches.items() if k != "corr_lookup"),
-              f"{label} launched another kernel than the lookup: {launches}")
+        check(launches["warp_bilinear"] == WARPS_PER_FRAME * steps,
+              f"{label}: warp_bilinear launches {launches['warp_bilinear']} != "
+              f"{WARPS_PER_FRAME} x {steps} steps")
+        check(all(v == 0 for k, v in launches.items() if k not in FORWARD_KERNELS),
+              f"{label} launched another kernel than the lookup and the warp: {launches}")
         paths[label] = launches
         peak = torch.cuda.max_memory_allocated()
 
@@ -1611,6 +1668,8 @@ def phase_server(kernels, card, weights, compute_dtype=None):
         chunk_steps = SERVER_TIMED + CHUNK + FrameGraph.WARMUP_STEPS
         launches = launch_counts(kernels)
         check(launches["corr_lookup"] == 6 * chunk_steps, f"{label} chunk lookups {launches}")
+        check(launches["warp_bilinear"] == WARPS_PER_FRAME * chunk_steps,
+              f"{label} chunk warps {launches}")
         paths[label + "_chunk"] = launches
         chunk_err = float((torch.cat(chunks) - torch.stack(outs[SERVER_WARMUP:])).abs().max())
         check_later(chunk_err == 0.0, f"{label}: serve_chunk differs from serve by {chunk_err}")
@@ -1677,6 +1736,7 @@ def phase_server(kernels, card, weights, compute_dtype=None):
             "vs_lone_animator_max_abs": worst_max, "vs_lone_animator_mean_abs": worst_mean,
             "lookup_bq_full_res": n_streams * (FRAME_SIZE // 4) ** 2,
             "lookups_per_step": paths[label]["corr_lookup"] / steps,
+            "warps_per_step": paths[label]["warp_bilinear"] / steps,
             "peak_memory_bytes": peak, **tuned,
         }
         print("phase11b " + json.dumps(result))
@@ -1702,7 +1762,7 @@ def phase_prior(kernels, card, clip, prior: str):
     256 px, random weights from the seed): `Animator` serving as phase 3
     drives it (frames/s, latency, 6 lookups a frame), then `Trainer` steps
     at batch 10 (TPSM with the channel dropout of epoch 0, p 0.1): ms/step,
-    peak memory and 6 / 6 / 17 / 22 launches a step. Returns the launch
+    peak memory and 6 / 6 / 17 / 22 / 20 launches a step. Returns the launch
     counts by path."""
     import torch
 
@@ -1851,6 +1911,8 @@ def phase_timing(k, device):
         stream_library,
         time_shapes,
         time_stream,
+        time_warps,
+        warp_sums,
     )
     from mrfa_tpu_torch.tools.probe_lookup import pooled_bwd_bytes, pooled_bwd_flops
 
@@ -1954,12 +2016,28 @@ def phase_timing(k, device):
         check(row["gb_per_s"] * 1e9 <= HBM_BYTES_PER_S,
               f"stream_probe {row['shape']} above the memory rate: bytes were skipped")
         rows[("stream_probe", torch.float32, bq)] = row
+    # the bilinear warp at a frame step's 19 warps for S=8 and S=1 streams:
+    # the table's rows are the largest (S=8, 64 channels at 256 px) and the
+    # 8x8 level at 512 channels
+    warp_rows = time_warps(k["warp_bilinear"], device, (torch.float32, torch.bfloat16))
+    for row in warp_rows:
+        print("phase7 warp " + json.dumps(row))
+        if row["streams"] == 8 and row["kind"] == "pixel" and row["res"] in (8, 256) \
+                and row["c"] > 3:
+            dtype = torch.float32 if row["dtype"] == "float32" else torch.bfloat16
+            key = "warp_bilinear" if row["res"] == 256 else "warp_bilinear_8x8"
+            rows[(key, dtype)] = {**row, "shape": f"B=8 C={row['c']} {row['res']}x{row['res']}"}
+    warp_totals = warp_sums(warp_rows)
+    for key, s in warp_totals.items():
+        print(f"phase7 sum {key}: {s['warps']} warps, {s['ms']:.6f} ms against {s['bound_ms']:.6f} "
+              f"ms bound; plain {s['plain_ms']:.6f} ms, {s['plain_device_ops']} device ops; "
+              f"F.grid_sample {s['library_ms']:.6f} ms")
     del flush
     shape_rows = time_shapes(k["splat"], k["corr_lookup"], device, (torch.float32, torch.bfloat16))
     for row in shape_rows:
         print("phase7 shape " + json.dumps(row))
-    sums = path_sums(shape_rows)
-    for key, s in sums.items():
+    sums = {**path_sums(shape_rows), **warp_totals}
+    for key, s in path_sums(shape_rows).items():
         print(f"phase7 sum {key}: {s['launches']} launches, {s['ms']:.6f} ms against "
               f"{s['bound_ms']:.6f} ms bound ({s['bound_ms'] / s['ms']:.3f} of it)")
     return rows, sums
@@ -1997,8 +2075,9 @@ def _profile(fn, n: int, label: str, trace_name: str, by_op: bool = False):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"{label}   {t / n / 1e3:8.3f} ms {c // n:5d}x  {name[:100]}")
     for name, (t, c) in by_name.items():
-        if name.startswith(("void (anonymous namespace)::", "(anonymous namespace)::",
-                            "corr_lookup", "splat")) and ("corr_lookup" in name or "splat" in name):
+        port = ("corr_lookup", "splat", "warp_bilinear")
+        if name.startswith(("void (anonymous namespace)::", "(anonymous namespace)::") + port) \
+                and any(k in name for k in port):
             print(f"{label}   port kernel {t / n / 1e3:8.3f} ms {c // n:5d}x  {name[:100]}")
     if by_op:
         from mrfa_tpu_torch.tools.kernel_times import SPLAT_SHAPES, TRAIN_BATCH
@@ -2036,12 +2115,13 @@ def phase_profile(served, frames_dev, trainer, batch):
         animator.animate_chunk(state, stack)  # the clip's graph, captured if it is not
         by_name, _, _ = _profile(lambda: animator.animate_chunk(state, stack), 1,
                                  f"phase8 chunk {label}", f"chunk_{label}_trace.json")
-        seen = sum(c for name, (_, c) in by_name.items() if "corr_lookup_kernel" in name)
-        counted = CHUNK * animator._graph.launches["corr_lookup"]
-        print(f"phase8 chunk {label}: {seen} lookup kernels traced in {CHUNK} replays, "
-              f"{counted} counted")
-        check(seen == counted == 6 * CHUNK,
-              f"chunk {label}: {seen} lookups traced, {counted} counted, want {6 * CHUNK}")
+        for name, per_step in (("corr_lookup", 6), ("warp_bilinear", WARPS_PER_FRAME)):
+            seen = sum(c for kernel, (_, c) in by_name.items() if f"{name}_kernel" in kernel)
+            counted = CHUNK * animator._graph.launches[name]
+            print(f"phase8 chunk {label}: {seen} {name} kernels traced in {CHUNK} replays, "
+                  f"{counted} counted")
+            check(seen == counted == per_step * CHUNK, f"chunk {label}: {seen} {name} traced, "
+                                                       f"{counted} counted, want {per_step * CHUNK}")
     by_name, _, _ = _profile(lambda: trainer.step(batch), 1, "phase8 training",
                              "step_trace.json", by_op=True)
     share = fft_share(by_name)
@@ -2546,6 +2626,8 @@ def phase_clis(kernels, card, work: Path):
         check(len(frames) == DEMO_FRAMES, f"{label}: {len(frames)} frames")
         check(launches[label]["corr_lookup"] == 6 * n_frames,
               f"{label}: {launches[label]['corr_lookup']} lookups for {n_frames} frame steps")
+        check(launches[label]["warp_bilinear"] == WARPS_PER_FRAME * n_frames,
+              f"{label}: {launches[label]['warp_bilinear']} warps for {n_frames} frame steps")
         out = Path(written)
         check(out.exists(), f"{label} wrote nothing at {written}")
         runs[label] = {"frames": len(frames), "seconds": seconds,
@@ -2672,7 +2754,7 @@ def phase_mesh_nccl(kernels, card, bf16_train):
     them bit-equal (a sum over one rank, divided by 1), and each is timed
     (ms a call, the mean of MESH_COLLECTIVE_CALLS). Then both Trainers timed
     in turns, plain, mesh, mesh, plain (ms/step, beside phase 13b's too;
-    peak memory over the turns; 6 / 6 / 17 / 22 launches a mesh step).
+    peak memory over the turns; 6 / 6 / 17 / 22 / 20 launches a mesh step).
     Returns the mesh steps' launch counts."""
     import torch
     import torch.distributed as dist
@@ -3305,13 +3387,14 @@ def phase_model_axis(card, work: Path) -> dict:
 
 def _check_replica_graphs(split, name: str) -> None:
     """Each replica of a split server holds a CUDA graph captured on its own
-    device whose replay launches the frame step's 6 lookups."""
+    device whose replay launches the frame step's 6 lookups and 19 warps."""
     for i, r in enumerate(split.replicas):
         graph = r._graph
         check(graph is not None and graph.input.device == r.device
               and graph.output.device == r.device,
               f"phase17c {name}: replica {i} has no graph on {r.device}")
-        check(graph.launches["corr_lookup"] == 6,
+        check(graph.launches["corr_lookup"] == 6
+              and graph.launches["warp_bilinear"] == WARPS_PER_FRAME,
               f"phase17c {name}: replica {i}'s graph replays {graph.launches}")
 
 
@@ -3333,6 +3416,8 @@ def _split_chunk_f32(kernels, split, one, sources, frames, frames_dev) -> dict:
     counts = launch_counts(kernels)
     check(counts["corr_lookup"] == 6 * parts * (FrameGraph.WARMUP_STEPS + CHUNK),
           f"phase17c f32 serve_chunk: {counts['corr_lookup']} lookups")
+    check(counts["warp_bilinear"] == WARPS_PER_FRAME * parts * (FrameGraph.WARMUP_STEPS + CHUNK),
+          f"phase17c f32 serve_chunk: {counts['warp_bilinear']} warps")
     _check_replica_graphs(split, "float32")
     check(all(float((got[k] - got[0]).abs().max()) > 0 for k in range(1, CHUNK)),
           "phase17c f32 serve_chunk: frames that differ gave equal frames")
@@ -3425,7 +3510,9 @@ def phase_split_server(kernels, card, server_results) -> dict:
         # each replica's steps: serve's, its graph's warm-up and capture
         # chunk, the timed chunks
         steps = n_steps + FrameGraph.WARMUP_STEPS + CHUNK + SERVER_TIMED
-        check(paths["split_server_bf16"]["corr_lookup"] == 6 * len(SPLIT_DEVICES) * steps,
+        check(paths["split_server_bf16"]["corr_lookup"] == 6 * len(SPLIT_DEVICES) * steps
+              and paths["split_server_bf16"]["warp_bilinear"]
+              == WARPS_PER_FRAME * len(SPLIT_DEVICES) * steps,
               f"phase17c bf16: {paths['split_server_bf16']} over {steps} steps on each device")
         _check_replica_graphs(split, name)
         want_chunk = torch.cat([one.serve_chunk(want_state, stack[i:i + CHUNK])
@@ -3608,6 +3695,9 @@ def main() -> int:
          "mrfa_tpu/ops/pallas_kernels.py:247", None, ("corr_lookup_pooled_bwd",)),
         ("stream_probe", "stream_probe.cu", "tools/probe_stream.py:61",
          "tools/probe_stream.py:90", ("stream_probe", STREAM_BQ)),
+        ("warp_bilinear", "warp_bilinear.cu",
+         "none: the XLA gather of mrfa_tpu/ops/sampler.py::_bilinear_core", None,
+         ("warp_bilinear",)),
     ):
         row = times[(key[0], f32, *key[1:])]
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -3636,6 +3726,11 @@ def main() -> int:
             entry["library_same_bytes_ms"] = row["library_same_bytes_ms"]
             entry["bq16384"] = {k: v for k, v in times[("stream_probe", f32, 16384)].items()
                                 if k != "shape"}
+        if name == "warp_bilinear":
+            for dtype in (f32, bf16):
+                entry[f"8x8_{dtype_name(dtype)}"] = {
+                    k: times[("warp_bilinear_8x8", dtype)][k]
+                    for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if name == "corr_lookup":
             for label, bq in (("serving_bq4096", LOOKUP_BQS[-1]),
                               ("server_bq16384", SERVER_BQ),

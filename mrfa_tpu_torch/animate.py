@@ -211,7 +211,13 @@ class Animator:
             captured = (graph is None or graph.clip_state is not clip_state
                         or graph.input.shape != frames.shape[1:])
             if captured:
-                self._graph = None  # free the last clip's graph first
+                # Free the last clip's graph, and so its memory pool, before the
+                # capture: torch.cuda.graph empties the cache as it starts, and
+                # under capture nothing more is given back. A convolution whose
+                # cuDNN plan cannot get its workspace there is given another
+                # plan (an f32 FFT plan's workspace takes many GB), and the
+                # graph then departs from the eager step.
+                graph = self._graph = None
                 graph = self._graph = FrameGraph(self._frame_step, clip_state, frames[0])
             out = torch.empty_like(frames)
             with torch.cuda.device(graph.input.device), profiling.REGISTRY.call(

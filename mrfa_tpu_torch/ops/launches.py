@@ -13,10 +13,12 @@ from typing import Dict
 
 def kernels():
     from mrfa_tpu_torch.ops.corr_lookup import corr_lookup, corr_lookup_bwd, corr_lookup_pooled_bwd
+    from mrfa_tpu_torch.ops.sampler import warp_bilinear
     from mrfa_tpu_torch.ops.splat import splat
     from mrfa_tpu_torch.ops.stream_probe import stream_probe
 
-    return (corr_lookup, corr_lookup_bwd, splat, corr_lookup_pooled_bwd, stream_probe)
+    return (corr_lookup, corr_lookup_bwd, splat, corr_lookup_pooled_bwd, stream_probe,
+            warp_bilinear)
 
 
 def counts() -> Dict[str, int]:

@@ -1,6 +1,6 @@
 """Times the splat and the lookup forward at every main-path shape on the card.
 
-    python mrfa_tpu_torch/tools/kernel_times.py [--tree DIR] [--label NAME] [--stream]
+    python mrfa_tpu_torch/tools/kernel_times.py [--tree DIR] [--label NAME] [--stream | --warp]
 
 With `--tree`, the kernels timed are those of the port in DIR (another
 checkout of this repository, for example a `git archive` of an earlier
@@ -54,6 +54,16 @@ LOOKUPS_PER_EVAL_CHUNK = {512: 1, 2048: 1, 8192: 1, 32768: 3}  # B=8
 FLOWS = ("noisy", "smooth", "wild", "collapse")
 STREAM_BQS = (4096, 16384)  # the stream probe's default and the lookup probe's largest
 STREAM_QB = 16  # queries per block of the TPU probe's streaming
+# The 19 warps of a 256 px frame step, per stream: (channels, side, points
+# per side^2, kind, count). The refinement and the decode sample each
+# pyramid level at pixel coordinates (`sample_pixel`), the coarse branch
+# each level but the finest through a zero-padded `grid_sample`; then the
+# final image warp and dense motion's source warp at its 11 motions.
+PYRAMID = ((512, 8), (512, 16), (512, 32), (256, 64), (128, 128), (64, 256))
+FRAME_WARPS = (tuple((c, r, 1, "pixel", 2) for c, r in PYRAMID)
+               + tuple((c, r, 1, "grid", 1) for c, r in PYRAMID[:-1])
+               + ((3, 256, 1, "pixel", 1), (3, 64, 11, "grid", 1)))
+WARP_STREAMS = (8, 1)
 
 
 def lookup_inputs(bq: int, dtype, device, seed: int):
@@ -121,6 +131,29 @@ def splat_inputs(res: int, c: int, dtype, device, seed: int, flow: str = "noisy"
     args = (g, y0.contiguous(), ((1.0 - wy) * vy0).contiguous(), (wy * vy1).contiguous(),
             x0.contiguous(), ((1.0 - wx) * vx0).contiguous(), (wx * vx1).contiguous(), res, res)
     return args, ix, iy
+
+
+def warp_inputs(b: int, c: int, res: int, motions: int, dtype, device, seed: int):
+    """A (B, C, res, res) image and the (B, motions * res^2, 2) pixel
+    coordinates of `motions` smooth flows around its grid."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    img = torch.randn(b, c, res, res, generator=gen, device=device).to(dtype)
+    ix, iy = sample_coords(res, "smooth", gen, device, batch=b * motions)
+    return img, torch.stack([ix.reshape(b, -1), iy.reshape(b, -1)], -1)
+
+
+def warp_bytes(b: int, c: int, res: int, n: int, itemsize: int) -> int:
+    """Bytes the warp must move: the output written, each source plane read
+    once, the f32 coordinates read."""
+    return b * c * (n + res * res) * itemsize + 8 * b * n
+
+
+def warp_flops(b: int, c: int, n: int) -> int:
+    """f32 operations of the warp: per output four products and three sums;
+    per point the floors, fractions, complements and four weights (~12)."""
+    return b * c * n * 7 + b * n * 12
 
 
 HOST_AHEAD_CYCLES = 2_000_000  # ~1 ms of card clock
@@ -325,6 +358,86 @@ def time_shapes(splat, lookup, device, dtypes, flows=("noisy", "smooth"), iters:
     return rows
 
 
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, sets) one call of `fn` issues:
+    the most a profiler trace of one call saw, of 3 (a trace can miss
+    some)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen.append(sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()))
+    return max(seen)
+
+
+def time_warps(warp, device, dtypes):
+    """`warp` (the B7 wrapper) at FRAME_WARPS for each of WARP_STREAMS:
+    kernel (20 calls), plain and `F.grid_sample` (10) ms after an L2 flush, the bound, the device
+    operations of the kernel and of the plain path, and the largest
+    difference from the plain path; one row per case."""
+    import torch
+    import torch.nn.functional as F
+
+    from mrfa_tpu_torch.ops.sampler import _unnormalize, warp_pixels_plain
+
+    flush = make_flush(device)
+    rows = []
+    for dtype in dtypes:
+        for s in WARP_STREAMS:
+            for i, (c, res, motions, kind, count) in enumerate(FRAME_WARPS):
+                img, pix = warp_inputs(s, c, res, motions, dtype, device, seed=20 + i)
+                n = pix.shape[1]
+                if kind == "grid":  # normalized as the model's grids (align_corners=False)
+                    coords, ac = (2.0 * pix + 1.0) / res - 1.0, False
+                    library_grid = coords
+                else:
+                    coords, ac = pix, None
+                    library_grid = pix * (2.0 / (res - 1)) - 1.0  # align_corners=True
+                # the plain path maps a grid to pixels with PyTorch ops of its own
+                pixels = lambda: ((coords[..., 0], coords[..., 1]) if ac is None  # noqa: E731
+                                  else tuple(_unnormalize(coords[..., k], res, ac) for k in (0, 1)))
+                kernel = lambda: warp(img, coords[..., 0], coords[..., 1], True, ac)  # noqa: E731
+                plain = lambda: warp_pixels_plain(img, *pixels())  # noqa: E731
+                grid = library_grid[:, None].to(dtype)
+                library = lambda: F.grid_sample(  # noqa: E731
+                    img, grid, mode="bilinear", padding_mode="zeros",
+                    align_corners=ac is None)
+                diff = (kernel().float() - plain().float()).abs()
+                rows.append({
+                    "kernel": "warp_bilinear", "dtype": str(dtype).split(".")[-1],
+                    "streams": s, "c": c, "res": res, "n": n, "kind": kind, "count": count,
+                    "ms": cuda_ms(kernel, 20, flush),
+                    "plain_ms": cuda_ms(plain, 10, flush),
+                    "library_ms": cuda_ms(library, 10, flush),
+                    "device_ops": device_ops(kernel), "plain_device_ops": device_ops(plain),
+                    "max_abs_diff_vs_plain": float(diff.max()),
+                    **bound(warp_bytes(s, c, res, n, img.element_size()), warp_flops(s, c, n)),
+                })
+                del img, pix, coords, grid, library_grid
+    torch.cuda.synchronize()
+    return rows
+
+
+def warp_sums(rows) -> dict:
+    """Σ count × ms (kernel, plain, library, bound) and Σ count × device
+    operations over a frame step's warps, per stream count and dtype."""
+    sums = {}
+    for r in rows:
+        s = sums.setdefault(f"serving_frame_s{r['streams']} warp_bilinear {r['dtype']}",
+                            {"warps": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                             "bound_ms": 0.0, "device_ops": 0, "plain_device_ops": 0})
+        s["warps"] += r["count"]
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ops", "plain_device_ops"):
+            s[k] += r["count"] * r[k]
+    return sums
+
+
 def profile_splat(splat, device, dtype, cases=((256, 64, "smooth"), (64, 256, "smooth"),
                                                (8, 512, "smooth")), calls: int = 5):
     """Device time by kernel of `calls` splat calls (torch.profiler), per
@@ -381,8 +494,11 @@ def main() -> int:
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]),
                         help="root of the checkout whose kernels are timed")
     parser.add_argument("--label", default=None, help="name printed on every line")
-    parser.add_argument("--stream", action="store_true",
-                        help="time the streaming probe instead of the splat and lookup")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--stream", action="store_true",
+                      help="time the streaming probe instead of the splat and lookup")
+    mode.add_argument("--warp", action="store_true",
+                      help="time the bilinear warp forward instead of the splat and lookup")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
 
@@ -406,6 +522,14 @@ def main() -> int:
         for bq in STREAM_BQS:
             row = time_stream(stream_probe, stream_probe_plain, bq, torch.device("cuda"), seed=13)
             print(json.dumps({"label": label, "kernel": "stream_probe", **row}), flush=True)
+        return 0
+    if args.warp:
+        from mrfa_tpu_torch.ops.sampler import warp_bilinear
+
+        rows = time_warps(warp_bilinear, torch.device("cuda"), (torch.bfloat16, torch.float32))
+        for r in rows:
+            print(json.dumps({"label": label, **r}), flush=True)
+        print(json.dumps({"label": label, "sums": warp_sums(rows)}))
         return 0
     rows = time_shapes(splat, corr_lookup, torch.device("cuda"),
                        (torch.float32, torch.bfloat16))

@@ -258,6 +258,110 @@ def test_corr_lookup_pooled_function_on_the_card(cuda):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
 
 
+def _ulp(x, bits: int):
+    """The spacing of floats with `bits` significant bits at |x|, elementwise."""
+    a = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - (bits - 1))
+
+
+def _warp_coords(b, n, res, device, seed, motions=1):
+    """(B, N) pixel coordinates: smooth flows around the grid of `motions`
+    copies of a res x res image, with integer coordinates, points up to 3 px
+    beyond every edge (partly outside) and four far outside mixed in."""
+    from mrfa_tpu_torch.tools.kernel_times import sample_coords
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ix, iy = (t.reshape(b, -1)[:, :n].clone()
+              for t in sample_coords(res, "smooth", gen, device, batch=b * motions))
+    k = max(n // 8, 1)
+    ix[:, :k], iy[:, :k] = torch.round(ix[:, :k]), torch.round(iy[:, :k])
+    for t in (ix, iy):
+        t[:, k:2 * k] = torch.rand(b, t[:, k:2 * k].shape[1], generator=gen,
+                                   device=device) * (res + 6) - 3
+    far = torch.tensor([[-40.0, 5.0], [res + 30.0, 20.0], [10.0, -50.0], [-9.0, -9.0]],
+                       device=device)
+    m = min(4, n - 2 * k)
+    if m > 0:
+        ix[:, 2 * k:2 * k + m], iy[:, 2 * k:2 * k + m] = far[:m, 0], far[:m, 1]
+    return ix, iy
+
+
+def _assert_warp_close(got, want, scale, dtype):
+    """f32: within 2 f32 ulps of the blend's scale (the sum of its terms'
+    magnitudes); bf16: within 1 bf16 ulp of the value, and those 2 f32 ulps."""
+    diff = (got.float() - want.float()).abs()
+    tol = 2 * _ulp(scale, 24)
+    if dtype == torch.bfloat16:
+        tol = tol + _ulp(want, 8)
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    assert bool((diff <= tol).all()), float((diff - tol).max())
+
+
+# the served warps' (B, C, side, motions): the pyramid levels at 8-256 px,
+# the image warp, and dense motion's source warp at 11 motions
+WARP_SHAPES = [(b, c, res, m) for b in (1, 8)
+               for c, res, m in ((512, 8, 1), (512, 16, 1), (512, 32, 1), (256, 64, 1),
+                                 (128, 128, 1), (64, 256, 1), (3, 256, 1), (3, 64, 11))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,res,motions", WARP_SHAPES)
+def test_warp_bilinear_kernel_matches_plain(cuda, dtype, b, c, res, motions):
+    from mrfa_tpu_torch.ops.sampler import WarpBilinear, _unnormalize, warp_pixels_plain
+
+    warp = WarpBilinear()
+    img = torch.randn(b, c, res, res, device=cuda).to(dtype)
+    n = motions * res * res
+    ix, iy = _warp_coords(b, n, res, cuda, seed=b + c + res, motions=motions)
+    grid = torch.stack([ix, iy], -1)  # read in place through its strides
+    scale = warp_pixels_plain(img.abs(), ix, iy).float()
+    _assert_warp_close(warp(img, grid[..., 0], grid[..., 1]), warp_pixels_plain(img, ix, iy),
+                       scale, dtype)
+    # a normalized grid, mapped to pixels inside the launch
+    for ac in (False, True):
+        norm = (2.0 * grid + 1.0) / res - 1.0 if not ac else grid * (2.0 / (res - 1)) - 1.0
+        px, py = _unnormalize(norm[..., 0], res, ac), _unnormalize(norm[..., 1], res, ac)
+        _assert_warp_close(warp(img, norm[..., 0], norm[..., 1], True, ac),
+                           warp_pixels_plain(img, px, py),
+                           warp_pixels_plain(img.abs(), px, py).float(), dtype)
+    # border and reflection: coordinates folded into the image first
+    cx, cy = ix.clamp(0, res - 1), iy.clamp(0, res - 1)
+    _assert_warp_close(warp(img, cx, cy, False), warp_pixels_plain(img, cx, cy, False),
+                       warp_pixels_plain(img.abs(), cx, cy, False).float(), dtype)
+    torch.cuda.synchronize()
+    assert warp.launches == 4
+
+
+def test_warp_bilinear_kernel_takes_strided_images(cuda):
+    """A channels-last image and a non-contiguous output layout of its
+    caller's making: the kernel reads through strides."""
+    from mrfa_tpu_torch.ops.sampler import WarpBilinear, warp_pixels_plain
+
+    warp = WarpBilinear()
+    img = torch.randn(2, 64, 32, 32, device=cuda).to(memory_format=torch.channels_last)
+    ix, iy = _warp_coords(2, 32 * 32, 32, cuda, seed=3)
+    got = warp(img, ix, iy)
+    torch.cuda.synchronize()
+    _assert_warp_close(got, warp_pixels_plain(img.contiguous(), ix, iy),
+                       warp_pixels_plain(img.abs().contiguous(), ix, iy), torch.float32)
+
+
+def test_warp_bilinear_kernel_raises_on_what_it_cannot_take(cuda):
+    from mrfa_tpu_torch.ops.sampler import WarpBilinear
+
+    warp = WarpBilinear()
+    img = torch.randn(2, 3, 8, 8, device=cuda)
+    ix = torch.rand(2, 5, device=cuda)
+    for bad, args in ((TypeError, (img.double(), ix, ix)),
+                      (TypeError, (img.half(), ix, ix)),
+                      (TypeError, (img, ix.double(), ix.double())),
+                      (ValueError, (img, ix.cpu(), ix.cpu()))):
+        with pytest.raises(bad):
+            warp(*args)
+    out = warp(img[:0], ix[:0], ix[:0])
+    assert out.shape == (0, 3, 5) and warp.launches == 0
+
+
 def _small_cfg(size=64, blocks=3, depth=1):
     """config/vox1.yaml's MTIA model cut to 64 px, 3-block hourglasses and a
     1-layer TokenPose (every width kept)."""
@@ -298,14 +402,53 @@ def test_animate_chunk_graph_equals_frame_by_frame(cuda):
     frames = rng.rand(5, 64, 64, 3).astype(np.float32)
     state = animator.begin(source, frames[0])
     want = torch.stack([animator.animate_frame(state, f)[0] for f in frames])
-    before = launches.counts()["corr_lookup"]
+    before = launches.counts()
     got = animator.animate_chunk(state, frames)  # captures the graph
     again = animator.animate_chunk(state, frames[::-1].copy())  # replays it
     torch.cuda.synchronize()
     assert got.shape == (5, 1, 64, 64, 3)
     assert torch.equal(got, want) and torch.equal(again, want.flip(0))
-    # 6 lookups a frame step: the eager warm-up steps and 10 replays
-    assert launches.counts()["corr_lookup"] - before == 6 * (FrameGraph.WARMUP_STEPS + 10)
+    # 6 lookups and 19 warps a frame step: the eager warm-up steps and 10 replays
+    after = launches.counts()
+    steps = FrameGraph.WARMUP_STEPS + 10
+    assert after["corr_lookup"] - before["corr_lookup"] == 6 * steps
+    assert after["warp_bilinear"] - before["warp_bilinear"] == 19 * steps
+    assert {k: n for k, n in animator._graph.launches.items() if n} == {
+        "corr_lookup": 6, "warp_bilinear": 19}
+
+
+def test_a_new_clip_frees_the_last_graph_before_its_capture(cuda, monkeypatch):
+    """The last clip's graph, and with it its memory pool, is gone before the
+    next clip's graph captures: a capture cannot free cached blocks, so what
+    the old pool holds would be missing to it (cuDNN then swaps a
+    convolution's plan for one of a smaller workspace, and the graph departs
+    from the eager step)."""
+    import weakref
+
+    from mrfa_tpu_torch import animate
+    from mrfa_tpu_torch.models.mrfa import MRFA
+
+    torch.manual_seed(0)
+    model = MRFA(_small_cfg())
+    animator = animate.Animator(model, model.state_dict())
+    rng = np.random.RandomState(0)
+    frames = rng.rand(3, 2, 64, 64, 3).astype(np.float32)
+    animator.animate_chunk(animator.begin(frames[0, 0], frames[0, 0]), frames[:, :1])
+    last = weakref.ref(animator._graph)
+    seen = {}
+
+    class Watched(animate.FrameGraph):
+        def __init__(self, *args):
+            seen["last_alive"] = last() is not None
+            super().__init__(*args)
+
+    monkeypatch.setattr(animate, "FrameGraph", Watched)
+    state = animator.begin(frames[0], frames[0])
+    got = animator.animate_chunk(state, frames)
+    torch.cuda.synchronize()
+    assert seen == {"last_alive": False}
+    want = torch.stack([animator.animate_frame(state, f)[0] for f in frames])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("devices", [("cuda:0", "cuda:0"), ("cuda:0", "cuda:1")],
@@ -331,7 +474,8 @@ def test_split_server_graph_on_each_device(cuda, devices):
     again = split.serve_chunk(state, frames[::-1].copy())  # replays the graphs
     for r in split.replicas:
         assert r._graph.output.device == r.device
-        assert r._graph.launches["corr_lookup"] == 6
+        assert {k: n for k, n in r._graph.launches.items() if n} == {
+            "corr_lookup": 6, "warp_bilinear": 19}
     want = []
     for rows in (slice(0, 2), slice(2, 4)):
         st = one.open_streams(sources[rows], frames[0][rows])
@@ -361,8 +505,9 @@ class _Clips:
 @pytest.mark.parametrize("name", ["celebvhq", "vox1"])
 def test_loop_epoch_of_two_steps_on_the_card(cuda, tmp_path, name):
     """One epoch of 2 steps of `loop.train` at 64 px (celebvhq: background
-    predictor on): the kernels launch 6 lookups, 6 lookup backwards and 17
-    splats a step, the loss terms are finite (bg among them with celebvhq),
+    predictor on): the kernels launch 6 lookups, 6 lookup backwards, 17
+    splats and 20 warps (the frame step's 19 and the equivariance transform)
+    a step, the loss terms are finite (bg among them with celebvhq),
     and the checkpoint restores into a new Trainer bit for bit."""
     from mrfa_tpu_torch.config import model_config
     from mrfa_tpu_torch.ops import launches
@@ -378,7 +523,7 @@ def test_loop_epoch_of_two_steps_on_the_card(cuda, tmp_path, name):
     torch.cuda.synchronize()
     counts = {k: n - before[k] for k, n in launches.counts().items()}
     assert counts == {"corr_lookup": 12, "corr_lookup_bwd": 12, "splat": 34,
-                      "corr_lookup_pooled_bwd": 0, "stream_probe": 0}
+                      "corr_lookup_pooled_bwd": 0, "stream_probe": 0, "warp_bilinear": 40}
     (line,) = (tmp_path / "log.txt").read_text().splitlines()
     terms = dict(t.split(" - ") for t in line.split(") ", 1)[1].split("; "))
     assert ("bg" in terms) == (name == "celebvhq")
@@ -455,6 +600,7 @@ def test_graph_counters_equal_the_calls(cuda):
 
     assert grew("graph.captures") == 2 and grew("graph.replays") == 8
     assert grew("launch.corr_lookup") == 6 * (2 * animator._graph.WARMUP_STEPS + 8)
+    assert grew("launch.warp_bilinear") == 19 * (2 * animator._graph.WARMUP_STEPS + 8)
     calls = after["calls"][len(before["calls"]):]
     assert [c["captured"] for c in calls] == [True, False, True]
     assert calls[0]["gap_ms"] is None and calls[1]["gap_ms"] >= 0

@@ -167,3 +167,101 @@ def test_plain_lookup_bf16_maps():
     assert got.dtype == torch.bfloat16
     ref = corr_lookup_plain(t0.float(), t1.float(), tc).to(torch.bfloat16)
     np.testing.assert_array_equal(got.float().numpy(), ref.float().numpy())
+
+
+def _warp_case(seed=10, b=2, c=5, h=9, w=11, n=30):
+    """An image and pixel coordinates inside, partly outside and wholly
+    outside it, some of them integers."""
+    rng = np.random.RandomState(seed)
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32))
+    ix = torch.from_numpy(rng.uniform(-3, w + 3, (b, n)).astype(np.float32))
+    iy = torch.from_numpy(rng.uniform(-3, h + 3, (b, n)).astype(np.float32))
+    ix[:, :4], iy[:, :4] = torch.round(ix[:, :4]), torch.round(iy[:, :4])
+    ix[:, 4], iy[:, 5] = -40.0, h + 30.0
+    return img, ix, iy
+
+
+def test_warp_bilinear_on_cpu_takes_the_plain_version():
+    """CPU tensors take `warp_pixels_plain` and count no launch, through the
+    wrapper and through the samplers."""
+    img, ix, iy = _warp_case()
+    before = tsampler.warp_bilinear.launches
+    for zero_oob in (True, False):
+        want = tsampler.warp_pixels_plain(img, ix, iy, zero_oob)
+        assert torch.equal(tsampler.warp_bilinear(img, ix, iy, zero_oob), want)
+        assert torch.equal(tsampler.warp_pixels(img, ix, iy, zero_oob), want)
+    grid = torch.stack([ix, iy], -1)[:, :, None]
+    tsampler.sample_pixel(img, grid)
+    tsampler.grid_sample(img, grid / 6.0, padding_mode="reflection")
+    assert tsampler.warp_bilinear.launches == before
+
+
+BAD_WARP_ARGS = {
+    "img_rank": (ValueError, lambda img, ix, iy: (img[0], ix, iy)),
+    "coords_rank": (ValueError, lambda img, ix, iy: (img, ix[..., None], iy[..., None])),
+    "coords_shapes": (ValueError, lambda img, ix, iy: (img, ix, iy[:, :-1])),
+    "batch": (ValueError, lambda img, ix, iy: (img[:1], ix, iy)),
+    "img_f16": (TypeError, lambda img, ix, iy: (img.half(), ix, iy)),
+    "img_int": (TypeError, lambda img, ix, iy: (img.int(), ix, iy)),
+    "coords_bf16": (TypeError, lambda img, ix, iy: (img, ix.bfloat16(), iy.bfloat16())),
+    "coords_int": (TypeError, lambda img, ix, iy: (img, ix.long(), iy.long())),
+    "coords_mixed": (TypeError, lambda img, ix, iy: (img, ix, iy.double())),
+}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", sorted(BAD_WARP_ARGS))
+def test_warp_bilinear_checks_its_arguments_first(case, device):
+    """Each check raises before the device branch: on the CPU, and on a
+    device the wrapper does not run on (which would raise ValueError)."""
+    error, make = BAD_WARP_ARGS[case]
+    args = [t.to(device) for t in make(*_warp_case())]
+    before = tsampler.warp_bilinear.launches
+    with pytest.raises(error):
+        tsampler.warp_bilinear(*args)
+    assert tsampler.warp_bilinear.launches == before
+
+
+def test_warp_bilinear_refuses_other_devices_and_f64_off_the_cpu():
+    img, ix, iy = (t.to("meta") for t in _warp_case())
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        tsampler.warp_bilinear(img, ix, iy)
+    with pytest.raises(TypeError):
+        tsampler.warp_bilinear(img.double(), ix, iy)
+    with pytest.raises(TypeError):
+        tsampler.warp_bilinear(img, ix.double(), iy.double())
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("size", [1, 2, 7, 64, 255, 256])
+def test_unnorm_terms_are_unnormalize(size, align_corners):
+    """The kernel's ((g + 1) * a - b) * c is `_unnormalize` bit for bit."""
+    g = torch.from_numpy(np.random.RandomState(size).uniform(-1.6, 1.6, 4096).astype(np.float32))
+    g[:5] = torch.tensor([-1.0, 1.0, 0.0, -0.0, 1e-8])
+    a, b, c = tsampler._unnorm_terms(size, align_corners)
+    assert torch.equal(((g + 1.0) * a - b) * c, tsampler._unnormalize(g, size, align_corners))
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_zero_padded_grid_sample_maps_the_grid_inside_the_warp(align_corners):
+    """With zero padding the warp takes the normalized grid and maps it to
+    pixels itself: the forward and both gradients are those of the grid
+    mapped first and warped at pixel coordinates, bit for bit."""
+    img, ix, iy = _warp_case(c=4, n=24)
+    h, w = img.shape[-2:]
+    grid = torch.stack([ix / (w / 2.0) - 1.0, iy / (h / 2.0) - 1.0], -1).reshape(2, 4, 6, 2)
+
+    def run(folded):
+        leaves = [img.clone().requires_grad_(True), grid.clone().requires_grad_(True)]
+        if folded:
+            out = tsampler.grid_sample(*leaves, align_corners=align_corners)
+        else:
+            g = leaves[1].reshape(2, -1, 2)
+            out = tsampler.warp_pixels(
+                leaves[0], tsampler._unnormalize(g[..., 0], w, align_corners),
+                tsampler._unnormalize(g[..., 1], h, align_corners)).reshape(2, 4, 4, 6)
+        cot = torch.from_numpy(np.random.RandomState(1).randn(*out.shape).astype(np.float32))
+        return (out, *torch.autograd.grad(out, leaves, cot))
+
+    for a, b in zip(run(True), run(False)):
+        assert torch.equal(a, b)
