@@ -187,9 +187,10 @@ class Animator:
                 use_relative_movement=self.relative,
                 use_relative_jacobian=self.relative and self.use_relative_jacobian,
             )
-        with profiling.stage("frame.dense_motion"):
-            dense_motion = model.run_dense_motion(source, kp_norm, kp_source)
-        # the decoder opens the stages frame.levels, frame.refine and frame.decode
+        # the dense motion network opens frame.dense_motion (the TPS network
+        # frame.tps before it)
+        dense_motion = model.run_dense_motion(source, kp_norm, kp_source)
+        # and the decoder frame.levels, frame.refine and frame.decode
         out, warp_img, occlusion = model.decoder(
             model.kp_for_decoder(kp_source), model.kp_for_decoder(kp_norm),
             dense_motion, img_down, source, source_cache=cache,

@@ -16,6 +16,9 @@ channel dropout-softmax (`_dropout_softmax`) over a (B, K+1) keep mask: the
 caller's (`Trainer` draws it from its own generator, `dropout_keep`), or one
 drawn from torch's default generator.
 
+Each network opens the frame step's stage `frame.dense_motion`; the TPS
+network opens `frame.tps` first, around its heatmaps, fits, grids and warps.
+
 Layouts: the returned `deformation` is a (B, h, w, 2) normalized grid, as
 `F.grid_sample` takes it; `occlusion` logits are (B, 1, h, w).
 
@@ -40,6 +43,7 @@ from mrfa_tpu_torch.ops.grid import (
 from mrfa_tpu_torch.ops.resize import antialias_downsample
 from mrfa_tpu_torch.ops.sampler import grid_sample
 from mrfa_tpu_torch.ops.tps import tps_fit, tps_transform_grid
+from mrfa_tpu_torch.utils import profiling
 from mrfa_tpu_torch.utils.device import to_device
 
 
@@ -145,23 +149,24 @@ class DenseMotionNetwork(nn.Module):
         dropout_p=0.0,
         keep: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        source_image = antialias_downsample(source_image, self.scale_factor)
-        bs, c, h, w = source_image.shape
-        heatmap = self.create_heatmap_representations(h, w, kp_driving, kp_source)
-        sparse_motion = self.create_sparse_motions(h, w, kp_driving, kp_source, bg_param)
-        deformed = self.create_deformed_source_image(source_image, sparse_motion)
-        # (heatmap, rgb) interleaved per motion: the reference's channel order
-        inp = torch.cat([heatmap[:, :, None], deformed], dim=2).reshape(bs, -1, h, w)
-        prediction = self.hourglass(inp)
-        mask = _motion_softmax(self.mask(prediction), dropout_flag, dropout_p, keep)
-        out = {
-            "sparse_deformed": deformed,
-            "mask": mask,
-            "deformation": einsum("bkhwc,bkhw->bhwc", sparse_motion, mask),
-        }
-        if self.occlusion is not None:
-            out["occlusion"] = self.occlusion(prediction)
-        return out
+        with profiling.stage("frame.dense_motion"):  # the frame step's stage
+            source_image = antialias_downsample(source_image, self.scale_factor)
+            bs, c, h, w = source_image.shape
+            heatmap = self.create_heatmap_representations(h, w, kp_driving, kp_source)
+            sparse_motion = self.create_sparse_motions(h, w, kp_driving, kp_source, bg_param)
+            deformed = self.create_deformed_source_image(source_image, sparse_motion)
+            # (heatmap, rgb) interleaved per motion: the reference's channel order
+            inp = torch.cat([heatmap[:, :, None], deformed], dim=2).reshape(bs, -1, h, w)
+            prediction = self.hourglass(inp)
+            mask = _motion_softmax(self.mask(prediction), dropout_flag, dropout_p, keep)
+            out = {
+                "sparse_deformed": deformed,
+                "mask": mask,
+                "deformation": einsum("bkhwc,bkhw->bhwc", sparse_motion, mask),
+            }
+            if self.occlusion is not None:
+                out["occlusion"] = self.occlusion(prediction)
+            return out
 
 
 class TPSDenseMotionNetwork(nn.Module):
@@ -222,20 +227,24 @@ class TPSDenseMotionNetwork(nn.Module):
         dropout_p=0.0,
         keep: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        if self.scale_factor != 1:
-            source_image = antialias_downsample(source_image, self.scale_factor)
-        bs, c, h, w = source_image.shape
-        heatmap = self.create_heatmap_representations(h, w, kp_driving, kp_source)
-        transformations = self.create_transformations(h, w, kp_driving, kp_source, bg_param)
-        deformed = self.create_deformed_source_image(source_image, transformations)
-        # the heatmaps block first, then the per-motion RGB block
-        inp = torch.cat([heatmap, deformed.reshape(bs, -1, h, w)], dim=1)
-        prediction = self.hourglass(inp)
-        contribution = _motion_softmax(self.maps(prediction), dropout_flag, dropout_p, keep)
-        return {
-            "deformed_source": deformed,
-            "contribution_maps": contribution,
-            "mask": contribution,
-            "deformation": einsum("bkhwc,bkhw->bhwc", transformations, contribution),
-            "occlusion": self.occlusion[0](prediction),
-        }
+        # the frame step's stage frame.tps: the heatmaps, the K fits, their
+        # dense grids and the K+1 warps of the source
+        with profiling.stage("frame.tps"):
+            if self.scale_factor != 1:
+                source_image = antialias_downsample(source_image, self.scale_factor)
+            bs, c, h, w = source_image.shape
+            heatmap = self.create_heatmap_representations(h, w, kp_driving, kp_source)
+            transformations = self.create_transformations(h, w, kp_driving, kp_source, bg_param)
+            deformed = self.create_deformed_source_image(source_image, transformations)
+        with profiling.stage("frame.dense_motion"):
+            # the heatmaps block first, then the per-motion RGB block
+            inp = torch.cat([heatmap, deformed.reshape(bs, -1, h, w)], dim=1)
+            prediction = self.hourglass(inp)
+            contribution = _motion_softmax(self.maps(prediction), dropout_flag, dropout_p, keep)
+            return {
+                "deformed_source": deformed,
+                "contribution_maps": contribution,
+                "mask": contribution,
+                "deformation": einsum("bkhwc,bkhw->bhwc", transformations, contribution),
+                "occlusion": self.occlusion[0](prediction),
+            }

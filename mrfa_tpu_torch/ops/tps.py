@@ -20,6 +20,7 @@ import torch
 
 from mrfa_tpu_torch.ops.grid import make_coordinate_grid
 from mrfa_tpu_torch.ops.sampler import grid_sample
+from mrfa_tpu_torch.utils import profiling
 from mrfa_tpu_torch.utils.device import to_device
 
 
@@ -39,7 +40,8 @@ def _radial(s: torch.Tensor) -> torch.Tensor:
 
 def tps_fit(kp_1: torch.Tensor, kp_2: torch.Tensor) -> TpsParams:
     """Fit the per-group TPS that maps the (B, G, N, 2) control points
-    `kp_1` (the driving keypoints in the prior) onto `kp_2`."""
+    `kp_1` (the driving keypoints in the prior) onto `kp_2`; counts the
+    B x G systems solved (`tps.fits`)."""
     b, g, n, _ = kp_1.shape
     d = kp_1[:, :, :, None, :] - kp_1[:, :, None, :, :]  # (B, G, N, N, 2)
     k = _radial((d * d).sum(-1))
@@ -49,7 +51,10 @@ def tps_fit(kp_1: torch.Tensor, kp_2: torch.Tensor) -> TpsParams:
     l_mat = torch.cat([top, right], dim=3)
     l_mat = l_mat + 0.01 * torch.eye(n + 3, dtype=kp_1.dtype, device=kp_1.device)
     y = torch.cat([kp_2, kp_1.new_zeros(b, g, 3, 2)], dim=2)  # (B, G, N+3, 2)
-    param = torch.linalg.solve(l_mat, y)
+    # solve_ex without its error check: `solve` reads the factorization's
+    # status back to the host, which a CUDA graph's capture refuses
+    param = torch.linalg.solve_ex(l_mat, y, check_errors=False).result
+    profiling.count("tps.fits", b * g)
     return TpsParams(param[:, :, n:, :].transpose(2, 3), kp_1, param[:, :, :n, :])
 
 

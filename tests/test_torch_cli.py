@@ -21,6 +21,7 @@
 import contextlib
 import io
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -78,10 +79,12 @@ def test_convert_backbones_matches_jax(tmp_path):
 
 @pytest.fixture(scope="module")
 def cli_inputs(tmp_path_factory):
-    """The shared 64 px config and a reference `.pth` from seed 0."""
+    """The shared 64 px config and a reference `.pth` from seed 0, removed
+    after the module."""
     root = tmp_path_factory.mktemp("cli")
     config_path, pth_path, state = write_cli_inputs(str(root), seed=0)
-    return root, config_path, pth_path, state
+    yield root, config_path, pth_path, state
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.fixture()

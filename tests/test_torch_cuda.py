@@ -362,12 +362,14 @@ def test_warp_bilinear_kernel_raises_on_what_it_cannot_take(cuda):
     assert out.shape == (0, 3, 5) and warp.launches == 0
 
 
-def _small_cfg(size=64, blocks=3, depth=1):
-    """config/vox1.yaml's MTIA model cut to 64 px, 3-block hourglasses and a
-    1-layer TokenPose (every width kept)."""
+def _small_cfg(size=64, blocks=3, depth=1, prior="mtia"):
+    """config/vox1.yaml's model under `prior` cut to 64 px, 3-block
+    hourglasses and a 1-layer TokenPose (every width kept)."""
     from mrfa_tpu_torch.config import model_config
 
-    return model_config(_small_run_cfg("vox1", size, blocks, depth))
+    cfg = model_config(_small_run_cfg("vox1", size, blocks, depth))
+    cfg["train_params"]["prior_model"] = prior
+    return cfg
 
 
 def _small_run_cfg(name, size=64, blocks=3, depth=1):
@@ -379,7 +381,8 @@ def _small_run_cfg(name, size=64, blocks=3, depth=1):
 
     cfg = load_config(str(Path(__file__).resolve().parents[1] / "config" / f"{name}.yaml"))
     cfg["train_params"]["scales"] = [1, 0.25]
-    cfg["dense_motion"]["num_blocks"] = blocks
+    for key in ("dense_motion", "fomm_kp_detector", "tpsm_dense_motion"):
+        cfg[key]["num_blocks"] = blocks
     model = cfg["mtia_kp_detector"]["MODEL"]
     model["TRANSFORMER_DEPTH"], model["IMAGE_SIZE"] = depth, [size, size]
     raft = cfg["raft_flow"]
@@ -389,32 +392,106 @@ def _small_run_cfg(name, size=64, blocks=3, depth=1):
     return cfg
 
 
-def test_animate_chunk_graph_equals_frame_by_frame(cuda):
+def _spread_tps_keypoints(model):
+    """Each of the random TPSM detector's 50 keypoints at its own place in
+    [-0.7, 0.7]^2 (its head's bias), as the benchmark's weights put them: at
+    torch's initialization all sit near the origin and the fits are ill
+    conditioned."""
+    fc = model.encoder.fg_encoder.fc
+    u = 1.4 * torch.rand(fc.bias.shape, generator=torch.Generator().manual_seed(7)) - 0.7
+    with torch.no_grad():
+        fc.bias.copy_(torch.log((1 + u) / (1 - u)))
+
+
+STAGES = {"mtia": ["frame.keypoints", "frame.dense_motion", "frame.levels", "frame.refine",
+                   "frame.decode"]}
+STAGES["fomm"] = STAGES["mtia"]
+STAGES["tpsm"] = STAGES["mtia"][:1] + ["frame.tps"] + STAGES["mtia"][1:]
+
+
+@pytest.mark.parametrize("prior", ["mtia", "tpsm", "fomm"])
+def test_animate_chunk_graph_equals_frame_by_frame(cuda, prior):
     from mrfa_tpu_torch.animate import Animator, FrameGraph
     from mrfa_tpu_torch.models.mrfa import MRFA
-    from mrfa_tpu_torch.ops import launches
+    from mrfa_tpu_torch.utils import profiling
 
     torch.manual_seed(0)
-    model = MRFA(_small_cfg())
+    model = MRFA(_small_cfg(prior=prior))
+    if prior == "tpsm":
+        _spread_tps_keypoints(model)
     animator = Animator(model, model.state_dict())
     rng = np.random.RandomState(0)
     source = rng.rand(64, 64, 3).astype(np.float32)
     frames = rng.rand(5, 64, 64, 3).astype(np.float32)
     state = animator.begin(source, frames[0])
     want = torch.stack([animator.animate_frame(state, f)[0] for f in frames])
-    before = launches.counts()
+    before = profiling.snapshot()["counters"]
     got = animator.animate_chunk(state, frames)  # captures the graph
     again = animator.animate_chunk(state, frames[::-1].copy())  # replays it
     torch.cuda.synchronize()
     assert got.shape == (5, 1, 64, 64, 3)
     assert torch.equal(got, want) and torch.equal(again, want.flip(0))
-    # 6 lookups and 19 warps a frame step: the eager warm-up steps and 10 replays
-    after = launches.counts()
+    # 6 lookups and 19 warps a frame step, and under TPSM 10 fits of one
+    # stream: the eager warm-up steps and 10 replays
+    after = profiling.snapshot()["counters"]
     steps = FrameGraph.WARMUP_STEPS + 10
-    assert after["corr_lookup"] - before["corr_lookup"] == 6 * steps
-    assert after["warp_bilinear"] - before["warp_bilinear"] == 19 * steps
+    fits = 10 if prior == "tpsm" else 0
+    assert after["launch.corr_lookup"] - before["launch.corr_lookup"] == 6 * steps
+    assert after["launch.warp_bilinear"] - before["launch.warp_bilinear"] == 19 * steps
+    assert after.get("tps.fits", 0) - before.get("tps.fits", 0) == fits * steps
     assert {k: n for k, n in animator._graph.launches.items() if n} == {
         "corr_lookup": 6, "warp_bilinear": 19}
+    assert list(animator._graph.stages.times_ms()) == STAGES[prior]
+
+
+@pytest.mark.parametrize("streams", [1, 8])
+def test_tps_fit_captured_alone_replays_equal_to_eager(cuda, streams):
+    """`tps_fit` of the 10 groups of 1 and of 8 streams, captured alone: each
+    replay on new keypoints gives the eager fit bit for bit, no synchronizing
+    runtime call runs in an eager fit or a replay, and the capture counts
+    the systems it solves (`tps.fits`, which `FrameGraph` adds at each
+    replay)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mrfa_tpu_torch.ops.tps import tps_fit
+    from mrfa_tpu_torch.utils import profiling
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def keypoints():
+        kp_1 = torch.rand(streams, 10, 5, 2, generator=g, device=cuda) * 1.4 - 0.7
+        return kp_1, kp_1 + 0.05 * torch.randn(streams, 10, 5, 2, generator=g, device=cuda)
+
+    static = [t.clone() for t in keypoints()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tps_fit(*static)  # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with profiling.CapturedCounts() as counts, torch.cuda.graph(graph, stream=side):
+        out = tps_fit(*static)
+    assert counts.delta["tps.fits"] == 10 * streams
+    for _ in range(3):
+        kp = keypoints()
+        for dst, src in zip(static, kp):
+            dst.copy_(src)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("probe.fits"):
+                graph.replay()
+                want = tps_fit(*kp)
+            torch.cuda.synchronize()
+        for got, w in zip(out, want):
+            assert torch.equal(got, w)
+        assert bool(torch.isfinite(out.control_params).all())
+        events = list(prof.profiler.kineto_results.events())
+        (probe,) = [e for e in events
+                    if e.name() == "probe.fits" and "CPU" in str(e.device_type())]
+        t0, t1 = probe.start_ns(), probe.start_ns() + probe.duration_ns()
+        inside = {e.name() for e in events if t0 <= e.start_ns() <= t1}
+        assert "cudaGraphLaunch" in inside
+        assert not inside & {"cudaStreamSynchronize", "cudaDeviceSynchronize",
+                             "cudaEventSynchronize", "cudaMemcpy"}, sorted(inside)
 
 
 def test_a_new_clip_frees_the_last_graph_before_its_capture(cuda, monkeypatch):

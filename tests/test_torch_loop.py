@@ -7,6 +7,7 @@ all three modes over a PNG dataset."""
 import contextlib
 import glob
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -159,7 +160,8 @@ def test_loop_passes_the_jax_clip_grad_default(tmp_path, clip_grad):
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
     """One 2-epoch training run through the CLI, then both eval modes from
-    its checkpoint; returns (config path, training log dir)."""
+    its checkpoint; yields (config path, training log dir), and removes
+    them after the module."""
     from mrfa_tpu_torch.cli.run import main
 
     base = tmp_path_factory.mktemp("cli")
@@ -182,7 +184,8 @@ def cli_run(tmp_path_factory):
               else contextlib.nullcontext()):
             main(["--config", config, "--mode", mode, "--checkpoint",
                   os.path.join(log_dir, "ckpt"), "--device", "cpu"])
-    return config, log_dir
+    yield config, log_dir
+    shutil.rmtree(base, ignore_errors=True)  # ~1.8 GB of checkpoints
 
 
 def test_cli_train_writes_logs_and_checkpoints(cli_run):
